@@ -1,0 +1,123 @@
+"""Build the CUDA kernels at first use and bind them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles, with ``nvcc`` for ``sm_90a``, into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds).  All sources compile in parallel, one ``nvcc`` each, into
+``build/`` beside this file; a library's file name carries a digest of its
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded.  A failed build raises with the compiler's output.
+
+Every exported function returns the ``cudaError_t`` of its launch; the
+wrappers call :func:`launch`, which raises when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent / 'build'
+SOURCES = ('snap_u_half', 'snap_y_half', 'snap_fused_de_half')
+FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+         '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / 'bin' / 'nvcc').exists():
+        return str(Path(CUDA_HOME) / 'bin' / 'nvcc')
+    raise RuntimeError('nvcc not found (PATH or CUDA_HOME); the CUDA '
+                       'kernels cannot be built')
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(' '.join(FLAGS).encode())
+    for src in sorted(CSRC.glob('*.cuh')) + [CSRC / f'{name}.cu']:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
+
+
+def build() -> dict:
+    """Compile every missing library in parallel.
+
+    Returns {name: dict(path, log)}; ``log`` holds ``-Xptxas -v``'s
+    registers / spill report for the libraries built by this call.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    jobs, out = {}, {}
+    for name in SOURCES:
+        path = _target(name)
+        if path.exists():
+            out[name] = dict(path=path, log='(cached)')
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = path.with_suffix(f'.{os.getpid()}.tmp')
+        cmd = [nvcc, *FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        jobs[name] = (path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (path, tmp, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f'--- {name} (nvcc exit {proc.returncode})\n{log}')
+            continue
+        os.replace(tmp, path)
+        out[name] = dict(path=path, log=log)
+    if failed:
+        raise RuntimeError('CUDA kernel build failed:\n' + '\n'.join(failed))
+    return out
+
+
+@lru_cache(maxsize=None)
+def _libraries():
+    built = build()
+    return {name: ctypes.CDLL(str(info['path']))
+            for name, info in built.items()}
+
+
+@lru_cache(maxsize=None)
+def _function(source: str, symbol: str, argtypes: tuple):
+    lib = _libraries()[source]
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err = lib.snap_cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+
+
+def launch(source: str, symbol: str, argtypes: tuple, *args) -> None:
+    """Call ``symbol`` of library ``source`` and raise on a CUDA error.
+
+    Tensors in ``args`` are passed as device pointers; the caller keeps
+    them alive across the (asynchronous) launch by holding references.
+    The launch goes to PyTorch's current stream on the first tensor's
+    device, which the C function also makes its current device.
+    """
+    fn, err_string = _function(source, symbol, tuple(argtypes) + (I, P))
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    code = fn(*conv, dev.index if dev.index is not None
+              else torch.cuda.current_device(), stream)
+    if code != 0:
+        raise RuntimeError(f'{symbol}: CUDA error {code} '
+                           f'({err_string(code).decode()})')
