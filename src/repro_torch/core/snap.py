@@ -6,8 +6,10 @@ Port of ``repro.core.snap``.  Two force implementations behind
 - ``adjoint`` — the paper's Sec. IV refactorization (Listing 5): the
   neighbor-independent adjoint Y = sum beta*Z on the fly (no Z storage),
   then the fused force contraction dE = 2 sum w Re(conj(dU) Y).
-- ``kernel``  — the half-plane U -> Y -> fused dE pipeline of
-  :mod:`repro_torch.kernels.ops` (hand-written CUDA kernels on the card).
+- ``kernel``  — the U -> Y -> fused dE pipeline of
+  :mod:`repro_torch.kernels.ops` (hand-written CUDA kernels on the card),
+  on half planes by default, on full planes with ``layout='full'``, with
+  bfloat16 Y operands with ``mxu_dtype=torch.bfloat16``.
 
 ``energy_forces_autodiff`` (reverse mode through ``torch.autograd``) is the
 independent oracle.  The ``baseline`` pipeline and atom sharding are not
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from . import bispectrum as bs
+from ..kernels.assemble import assemble_forces_csr, destination_csr
 from .geometry import (compute_geometry, compute_geometry_grad,
                        sanitize_displacements)
 from .indices import SnapIndex, build_index
@@ -119,16 +122,16 @@ def assemble_forces(dedr, nbr_idx, mask, natoms):
     """F_i += sum_k dE_i/dr_k ; F_k -= dE_i/dr_k (Newton's third law).
 
     Single-shard assembly: ``dedr`` [natoms, nnbor, 3] rows span all atoms.
-    ``index_add_`` on a CUDA tensor accumulates with float atomics, so the
-    force is not bitwise reproducible from run to run there (ROADMAP
-    Queue C).
+    Each atom's sum runs in a fixed order (its own row, then the rows that
+    name it as neighbor, sorted by destination), so on the card two
+    evaluations of the same inputs give the same bits; see
+    :mod:`repro_torch.kernels.assemble`.
     """
     if dedr.shape[0] != natoms:
         raise ValueError(f'dedr has {dedr.shape[0]} atom rows, expected '
                          f'{natoms}')
-    d = dedr * mask[..., None].to(dedr.dtype)
-    f = d.sum(dim=1)                            # center rows are 0..natoms-1
-    return f.index_add(0, nbr_idx.reshape(-1).long(), -d.reshape(-1, 3))
+    d = (dedr * mask[..., None].to(dedr.dtype)).contiguous()
+    return assemble_forces_csr(d, *destination_csr(nbr_idx, natoms))
 
 
 # ---------------------------------------------------------------------------
@@ -229,10 +232,13 @@ def energy_forces(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx, mask,
                   impl: str = 'adjoint', **kw):
     """Dispatch front-end used by MD.
 
-    impl='kernel' forwards ``kw`` (``dtype``, ``device``, ``layout``,
-    ``with_energy``) to :func:`repro_torch.kernels.ops.snap_force_pipeline`;
-    impl='adjoint' takes ``device``, ``with_energy`` and ``energy_via_z``
-    and runs in ``cfg.dtype``.
+    impl='kernel' forwards ``kw`` to
+    :func:`repro_torch.kernels.ops.snap_force_pipeline`: ``dtype``,
+    ``device``, ``with_energy``, ``layout`` ('half', the default, or
+    'full': the full-plane U, Y and fused dE kernels) and ``mxu_dtype``
+    (None, or ``torch.bfloat16`` to round the Y stage's operands to
+    bfloat16; half layout only).  impl='adjoint' takes ``device``,
+    ``with_energy`` and ``energy_via_z`` and runs in ``cfg.dtype``.
     """
     if impl == 'adjoint':
         return energy_forces_adjoint(cfg, beta, beta0, dx, dy, dz,

@@ -8,11 +8,13 @@ sources and flags, so an edited source is rebuilt and a stale library is
 never loaded.  A failed build raises with the compiler's output.
 
 Every exported function returns the ``cudaError_t`` of its launch; the
-wrappers call :func:`launch`, which raises when it is not 0.
+wrappers call :func:`launch`, which raises when it is not 0, and then add
+one to their entry of :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -25,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / 'build'
-SOURCES = ('snap_u_half', 'snap_y_half', 'snap_fused_de_half')
+SOURCES = ('snap_u', 'snap_y', 'snap_fused_de', 'assemble_forces')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -101,6 +103,8 @@ def _function(source: str, symbol: str, argtypes: tuple):
 
 
 P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# kernel launches per wrapper entry (the wrappers count; CPU runs do not)
+LAUNCHES = collections.Counter()
 
 
 def launch(source: str, symbol: str, argtypes: tuple, *args) -> None:

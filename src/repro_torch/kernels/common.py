@@ -121,6 +121,61 @@ def level_stitch(ca, cb, au, bu):
             F.pad(ca * au_i, pad_a) + F.pad(cb * bu_i, pad_b))
 
 
+def mirror_fill(left_r, left_i, sgn, j):
+    """Full layer j from its left rows [j//2 + 1, j+1, L]: row mb' > j//2 is
+    (-1)^(mb'+ma') conj(u(j - mb', j - ma')), from the first nmir left rows
+    flipped in both axes."""
+    nmir = j + 1 - (j // 2 + 1)
+    src_r = torch.flip(left_r[:nmir], dims=(0, 1))
+    src_i = torch.flip(left_i[:nmir], dims=(0, 1))
+    return (torch.cat([left_r, sgn * src_r], dim=0),
+            torch.cat([left_i, -sgn * src_i], dim=0))
+
+
+def u_level_step(prev_r, prev_i, a_r, a_i, b_r, b_i, j):
+    """One recursion level on full layers (the full-plane U stage).
+
+    prev_*: full previous layer [j, j, L].  Returns full layer
+    [j+1, j+1, L]: the left rows by the column stitch of the previous
+    layer's rows 0..j//2, then the mirror fill of the rest."""
+    rows = j // 2 + 1
+    ca, cb, sgn, _ = level_coefs(j, prev_r.dtype, prev_r.device)
+    p_r, p_i = prev_r[:rows], prev_i[:rows]
+    left_r, left_i = level_stitch(ca, cb, conj_mul(a_r, a_i, p_r, p_i),
+                                  conj_mul(b_r, b_i, p_r, p_i))
+    return mirror_fill(left_r, left_i, sgn, j)
+
+
+def dual_level_step(pr, pi, dpr, dpi, a, da, b, db, j):
+    """Advance full layers (u, du[3]) one recursion level (the full-plane
+    fused dE stage).
+
+    pr/pi: [j, j, L] full previous layer; dpr/dpi: lists of 3 such
+    tangents.  a = (a_r, a_i), da = (da_r[3], da_i[3]); likewise b, db.
+    Each tangent takes the product rule d(conj(c) u) = conj(dc) u +
+    conj(c) du before the same stitch and mirror fill as u.  Returns
+    (full_r, full_i, dfull_r[3], dfull_i[3]) at [j+1, j+1, L]."""
+    rows = j // 2 + 1
+    ca, cb, sgn, _ = level_coefs(j, pr.dtype, pr.device)
+    (a_r, a_i), (b_r, b_i) = a, b
+    (da_r, da_i), (db_r, db_i) = da, db
+    p_r, p_i = pr[:rows], pi[:rows]
+    full_r, full_i = mirror_fill(
+        *level_stitch(ca, cb, conj_mul(a_r, a_i, p_r, p_i),
+                      conj_mul(b_r, b_i, p_r, p_i)), sgn, j)
+    dfull_r, dfull_i = [], []
+    for k in range(3):
+        q_r, q_i = dpr[k][:rows], dpi[k][:rows]
+        dau_r, dau_i = conj_mul(da_r[k], da_i[k], p_r, p_i)
+        dau = (dau_r + a_r * q_r + a_i * q_i, dau_i + a_r * q_i - a_i * q_r)
+        dbu_r, dbu_i = conj_mul(db_r[k], db_i[k], p_r, p_i)
+        dbu = (dbu_r + b_r * q_r + b_i * q_i, dbu_i + b_r * q_i - b_i * q_r)
+        d_r, d_i = mirror_fill(*level_stitch(ca, cb, dau, dbu), sgn, j)
+        dfull_r.append(d_r)
+        dfull_i.append(d_i)
+    return full_r, full_i, dfull_r, dfull_i
+
+
 def u_half_level_step(left_r, left_i, a_r, a_i, b_r, b_i, j):
     """One recursion level on left-rows-only storage.
 

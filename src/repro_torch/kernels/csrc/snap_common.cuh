@@ -1,11 +1,15 @@
-// Shared device code of the SNAP half-plane kernels (sm_90a).
+// Shared device code of the SNAP kernels (sm_90a).
 //
 // Layout (kept from the reference so every stage compares like with like):
 // planes are [rows, n] with the atom index on the fast axis, so a warp of
 // consecutive atoms reads and writes consecutive addresses.  The Wigner-U
 // recursion keeps only the left rows 2*mb <= j of each level ("half"
-// storage, row-major (mb, ma), stride j+1); level j starts at
-//     half_block(j) = sum_{j' < j} (j'/2 + 1) (j' + 1).
+// storage, row-major (mb, ma), stride j+1).  A half plane holds just those
+// rows, a full plane every row of every level; in both, level j starts at
+// the summed sizes of the levels below it (level_size) and its left rows
+// come first, so element (mb, ma) of the left rows sits at
+//     level start + mb * (j + 1) + ma
+// in either layout.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -135,6 +139,12 @@ __device__ __forceinline__ T half_weight(int j, int mb, int ma) {
   if (2 * mb < j) return T(1);
   if (2 * ma < j) return T(1);
   return 2 * ma == j ? T(0.5) : T(0);
+}
+
+// Plane rows of level j: (j/2 + 1)(j + 1) left rows in the half layout,
+// (j + 1)^2 in the full one.
+__device__ __forceinline__ int level_size(int j, bool full) {
+  return full ? (j + 1) * (j + 1) : (j / 2 + 1) * (j + 1);
 }
 
 extern "C" const char* snap_cuda_error_string(int code) {

@@ -1,12 +1,22 @@
-// Half-plane fused dE kernel: for each (neighbor, atom) pair, the Wigner
-// recursion of u and of du/dx, du/dy, du/dz on the left rows 2mb <= j,
-// contracted level by level against that atom's adjoint Y:
+// Fused dE kernels: for each (neighbor, atom) pair, the Wigner recursion of
+// u and of du/dx, du/dy, du/dz on the left rows 2mb <= j, contracted level
+// by level against that atom's adjoint Y:
 //     dedr[k, d, atom] = 2 sum_{j, mb, ma} w * Re(conj(dU_d) Y),
 //     dU_d = dsfac_d * u + sfac * du_d,
 // with row 3 of the output written 0.  No per-pair dU leaves the thread.
 //
-// Replaces the TPU kernel
-// repro/kernels/snap_fused_de_half.py:snap_fused_de_half_pallas.
+// Replaces two TPU kernels:
+//   snap_fused_de_half_{f32,f64}
+//     repro/kernels/snap_fused_de_half.py:snap_fused_de_half_pallas
+//     (Y as half planes [idxu_half_max, n]);
+//   snap_fused_de_full_{f32,f64}
+//     repro/kernels/snap_fused_de.py:snap_fused_de_pallas
+//     (Y as full planes [idxu_max, n]).
+// The contraction weight w is 0 on every mirror row (rows 2mb > j), so both
+// carry only the left rows of the recursion; the full kernel reads Y at the
+// left rows' full-plane positions (level start + mb (j+1) + ma).  Its TPU
+// counterpart carried all (j+1)^2 elements x 4 (u and three tangents), for
+// the same result; here that would double the local-memory frame below.
 // One thread per pair (k, atom): a warp covers 32 consecutive atoms of one
 // neighbor slot, so the displacement, Y and output accesses are coalesced.
 // The level state (u and three tangents, current and previous level) lives
@@ -19,15 +29,14 @@
 
 #include "snap_common.cuh"
 
-template <typename T>
-__global__ void snap_fused_de_half_kernel(const T* __restrict__ disp,
-                                          const T* __restrict__ y_r,
-                                          const T* __restrict__ y_i,
-                                          T* __restrict__ out,
-                                          const T* __restrict__ rootpq,
-                                          int nnbor, int n, int twojmax,
-                                          T rcut, T rmin0, T rfac0,
-                                          int switch_flag) {
+template <typename T, bool FULL>
+__global__ void snap_fused_de_kernel(const T* __restrict__ disp,
+                                     const T* __restrict__ y_r,
+                                     const T* __restrict__ y_i,
+                                     T* __restrict__ out,
+                                     const T* __restrict__ rootpq, int nnbor,
+                                     int n, int twojmax, T rcut, T rmin0,
+                                     T rfac0, int switch_flag) {
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= (long long)nnbor * n) return;
   const int k = (int)(tid / n);
@@ -119,7 +128,7 @@ __global__ void snap_fused_de_half_kernel(const T* __restrict__ disp,
         }
       }
     }
-    base += rows * (j + 1);
+    base += level_size(j, FULL);
     cur = nx;
   }
   T* o = out + (size_t)k * 4 * n + atom;
@@ -128,7 +137,7 @@ __global__ void snap_fused_de_half_kernel(const T* __restrict__ disp,
   o[(size_t)3 * n] = T(0);
 }
 
-template <typename T>
+template <typename T, bool FULL>
 static int launch(const void* disp, const void* y_r, const void* y_i,
                   void* out, const void* rootpq, int nnbor, int n,
                   int twojmax, double rcut, double rmin0, double rfac0,
@@ -140,7 +149,7 @@ static int launch(const void* disp, const void* y_r, const void* y_i,
   const long long pairs = (long long)nnbor * n;
   if (pairs == 0) return 0;
   const int block = 128;
-  snap_fused_de_half_kernel<T>
+  snap_fused_de_kernel<T, FULL>
       <<<(unsigned)((pairs + block - 1) / block), block, 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(disp), static_cast<const T*>(y_r),
@@ -150,22 +159,16 @@ static int launch(const void* disp, const void* y_r, const void* y_i,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int snap_fused_de_half_f32(const void* disp, const void* y_r,
-                                      const void* y_i, void* out,
-                                      const void* rootpq, int nnbor, int n,
-                                      int twojmax, double rcut, double rmin0,
-                                      double rfac0, int switch_flag,
-                                      int device, void* stream) {
-  return launch<float>(disp, y_r, y_i, out, rootpq, nnbor, n, twojmax, rcut,
-                       rmin0, rfac0, switch_flag, device, stream);
-}
+#define SNAP_DE_SYMBOL(name, T, FULL)                                        \
+  extern "C" int name(const void* disp, const void* y_r, const void* y_i,    \
+                      void* out, const void* rootpq, int nnbor, int n,       \
+                      int twojmax, double rcut, double rmin0, double rfac0,  \
+                      int switch_flag, int device, void* stream) {           \
+    return launch<T, FULL>(disp, y_r, y_i, out, rootpq, nnbor, n, twojmax,   \
+                           rcut, rmin0, rfac0, switch_flag, device, stream); \
+  }
 
-extern "C" int snap_fused_de_half_f64(const void* disp, const void* y_r,
-                                      const void* y_i, void* out,
-                                      const void* rootpq, int nnbor, int n,
-                                      int twojmax, double rcut, double rmin0,
-                                      double rfac0, int switch_flag,
-                                      int device, void* stream) {
-  return launch<double>(disp, y_r, y_i, out, rootpq, nnbor, n, twojmax, rcut,
-                        rmin0, rfac0, switch_flag, device, stream);
-}
+SNAP_DE_SYMBOL(snap_fused_de_half_f32, float, false)
+SNAP_DE_SYMBOL(snap_fused_de_half_f64, double, false)
+SNAP_DE_SYMBOL(snap_fused_de_full_f32, float, true)
+SNAP_DE_SYMBOL(snap_fused_de_full_f64, double, true)

@@ -1,16 +1,19 @@
 """The kernel-backed SNAP energy/force pipeline (``impl='kernel'`` in
 :func:`repro_torch.core.snap.energy_forces`) and its per-stage wrappers.
 
-Port of ``repro.kernels.ops``, half-plane layout only.  After one entry
-relayout ([natoms, nnbor] -> [nnbor, 4, natoms_pad]), U -> Y -> fused dE
-run in the plane layout ``[idxu_half_max, natoms_pad]`` with the atom on
-the fast axis; the only exits are the force assembly and the in-layout
-energy.  Each stage goes through its wrapper, which launches the CUDA
-kernel on a CUDA tensor and runs the plain version on a CPU tensor.
+Port of ``repro.kernels.ops``.  After one entry relayout ([natoms, nnbor]
+-> [nnbor, 4, natoms_pad]), U -> Y -> fused dE run in plane layout with the
+atom on the fast axis; the only exits are the force assembly and the
+in-layout energy.  ``layout='half'`` (the default) keeps every plane at
+``[idxu_half_max, natoms_pad]``; ``layout='full'`` runs the full-plane
+stages on ``[idxu_max, natoms_pad]``, kept for A/B measurement of plane
+traffic.  ``mxu_dtype=torch.bfloat16`` (half layout only) rounds the Y
+stage's operands to bfloat16.  Each stage goes through its wrapper, which
+launches the CUDA kernel on a CUDA tensor and runs the plain version on a
+CPU tensor.
 
-Not ported yet: ``layout='full'`` (ROADMAP Queue B, items 4-6), the bf16
-``mxu_dtype`` option of the Y stage (Queue B, item 2), the sharded and the
-batched (serving) force functions (Queue A, items 5 and 7).
+Not ported yet: the sharded and the batched (serving) force functions
+(ROADMAP Queue A, items 5 and 7).
 """
 
 from __future__ import annotations
@@ -20,38 +23,53 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import _build
 from ..core.geometry import sanitize_displacements
 from ..core.snap import (SnapConfig, assemble_forces, bzero_shift,
                          resolve_device)
 from .common import LANES
+from .snap_fused_de import snap_fused_de_full, snap_fused_de_full_plain
 from .snap_fused_de_half import snap_fused_de_half, snap_fused_de_half_plain
-from .snap_u import snap_u_half, snap_u_half_plain
-from .snap_y import snap_y_half, snap_y_half_plain, y_coef_half
+from .snap_u import (snap_u_full, snap_u_full_plain, snap_u_half,
+                     snap_u_half_plain)
+from .snap_y import (check_mxu_dtype, snap_y_full, snap_y_full_plain,
+                     snap_y_half, snap_y_half_plain, y_coef, y_coef_half)
 
-LAYOUTS = ('half',)
-KERNELS = (snap_u_half, snap_y_half, snap_fused_de_half)
+LAYOUTS = ('half', 'full')
+# every kernel entry, as counted in _build.LAUNCHES
+KERNELS = ('snap_u_half', 'snap_y_half', 'snap_y_half_bf16',
+           'snap_fused_de_half', 'snap_u_full', 'snap_y_full',
+           'snap_fused_de_full', 'assemble_forces')
+# (U, Y, fused dE, Y coefficient) per layout: wrappers and plain versions
+_STAGES = {
+    'half': (snap_u_half, snap_y_half, snap_fused_de_half, y_coef_half),
+    'full': (snap_u_full, snap_y_full, snap_fused_de_full, y_coef),
+}
+_PLAIN_STAGES = {
+    'half': (snap_u_half_plain, snap_y_half_plain, snap_fused_de_half_plain,
+             y_coef_half),
+    'full': (snap_u_full_plain, snap_y_full_plain, snap_fused_de_full_plain,
+             y_coef),
+}
 
 
 def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset."""
-    return {k.__name__: k.launches for k in KERNELS}
+    """Kernel launches per kernel entry since the last reset."""
+    return {k: _build.LAUNCHES[k] for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    _build.LAUNCHES.clear()
 
 
 def _check_options(layout, mxu_dtype):
-    if layout == 'full':
-        raise NotImplementedError(
-            "layout='full' is not ported yet (ROADMAP Queue B, items 4-6)")
     if layout not in LAYOUTS:
         raise ValueError(f'unknown layout {layout!r}; choose from {LAYOUTS}')
-    if mxu_dtype is not None:
-        raise NotImplementedError(
-            'the low-precision Y operand option (mxu_dtype) is not ported '
-            'yet (ROADMAP Queue B, item 2)')
+    check_mxu_dtype(mxu_dtype)
+    if mxu_dtype is not None and layout != 'half':
+        raise ValueError(
+            "mxu_dtype is a half-layout option (the full-plane Y stage has "
+            "no low-precision path); drop it or use layout='half'")
 
 
 def _kernel_layout(cfg: SnapConfig, dx, dy, dz, mask, dtype):
@@ -71,13 +89,17 @@ def _kernel_layout(cfg: SnapConfig, dx, dy, dz, mask, dtype):
 
 
 @lru_cache(maxsize=32)
-def _self_planes(cfg: SnapConfig, dtype, device):
-    """Wigner self-contribution as a lane-broadcastable [idxu_half_max, 1]
-    plane (the U kernel leaves it out).  Read-only, cached so an evaluation
-    uploads no table."""
+def _self_planes(cfg: SnapConfig, dtype, device, layout='half'):
+    """Wigner self-contribution as a lane-broadcastable [rows, 1] plane of
+    ``layout`` (the U kernels leave it out).  Read-only, cached so an
+    evaluation uploads no table."""
     idx = cfg.index
-    v = np.zeros(idx.idxu_half_max)
-    v[idx.self_diag_half] = cfg.wself
+    if layout == 'half':
+        v = np.zeros(idx.idxu_half_max)
+        v[idx.self_diag_half] = cfg.wself
+    else:
+        v = np.zeros(idx.idxu_max)
+        v[idx.self_diag] = cfg.wself
     return torch.as_tensor(v, dtype=dtype, device=device)[:, None]
 
 
@@ -95,17 +117,23 @@ def half_planes_to_full(cfg: SnapConfig, h_r, h_i):
 
 
 @lru_cache(maxsize=32)
-def _half_weights(cfg: SnapConfig, dtype, device):
-    """``dedr_weight_half`` as a read-only [idxu_half_max, 1] plane."""
-    return torch.as_tensor(cfg.index.dedr_weight_half, dtype=dtype,
-                           device=device)[:, None]
+def _energy_weights(cfg: SnapConfig, dtype, device, layout):
+    """``dedr_weight_half`` or ``dedr_weight`` as a read-only [rows, 1]
+    plane."""
+    idx = cfg.index
+    w = idx.dedr_weight_half if layout == 'half' else idx.dedr_weight
+    return torch.as_tensor(w, dtype=dtype, device=device)[:, None]
 
 
 def energy_from_ylist_lanes(cfg: SnapConfig, ut_r, ut_i, y_r, y_i,
                             beta, beta0):
-    """Per-atom energy in plane layout: (2/3) sum_jju w Re(conj(U) Y) over
-    the half rows (exact: ``dedr_weight`` is 0 on every mirrored row)."""
-    w = _half_weights(cfg, ut_r.dtype, ut_r.device)
+    """Per-atom energy in plane layout: (2/3) sum_jju w Re(conj(U) Y).
+
+    Operands are half [idxu_half_max, N] or full [idxu_max, N] planes,
+    told apart by their row count.  The half form is exact because
+    ``dedr_weight`` is 0 on every mirrored row."""
+    layout = 'half' if ut_r.shape[0] == cfg.index.idxu_half_max else 'full'
+    w = _energy_weights(cfg, ut_r.dtype, ut_r.device, layout)
     e_raw = (2.0 / 3.0) * torch.sum(w * (ut_r * y_r + ut_i * y_i), dim=0)
     return beta0 + e_raw - bzero_shift(cfg, beta, e_raw.dtype)
 
@@ -118,18 +146,19 @@ def _to_layout(cfg, dx, dy, dz, mask, dtype, device):
     return _kernel_layout(cfg, dx, dy, dz, mask, dtype)
 
 
-def _pipeline(stages, cfg, beta, beta0, dx, dy, dz, nbr_idx, mask, dtype,
-              device, with_energy):
-    u_stage, y_stage, de_stage = stages
+def _pipeline(stages, layout, cfg, beta, beta0, dx, dy, dz, nbr_idx, mask,
+              dtype, device, with_energy, mxu_dtype=None):
+    u_stage, y_stage, de_stage, coef_of = stages
     disp, ok, natoms = _to_layout(cfg, dx, dy, dz, mask, dtype, device)
     nbr_idx = torch.as_tensor(nbr_idx, device=device, dtype=torch.long)
     beta = torch.as_tensor(beta, device=device)
     geo = dict(twojmax=cfg.twojmax, rcut=cfg.rcut, rmin0=cfg.rmin0,
                rfac0=cfg.rfac0, switch_flag=cfg.switch_flag)
     ut_r, ut_i = u_stage(disp, **geo)
-    ut_r = ut_r + _self_planes(cfg, dtype, device)
-    coef = y_coef_half(beta, cfg.twojmax).to(dtype)
-    y_r, y_i = y_stage(ut_r, ut_i, coef, twojmax=cfg.twojmax)
+    ut_r = ut_r + _self_planes(cfg, dtype, device, layout)
+    coef = coef_of(beta, cfg.twojmax).to(dtype)
+    y_kw = {} if mxu_dtype is None else dict(mxu_dtype=mxu_dtype)
+    y_r, y_i = y_stage(ut_r, ut_i, coef, twojmax=cfg.twojmax, **y_kw)
     dedr = de_stage(disp, y_r, y_i, **geo)
     # pipeline exit: per-pair dE back to [natoms, nnbor, 3] force assembly
     dedr_pairs = dedr[:, :3, :natoms].permute(2, 0, 1)
@@ -150,24 +179,27 @@ def snap_force_pipeline(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx,
     Inputs are [natoms, nnbor] arrays or tensors (``beta``: [ncoeff]).  On
     ``device='cuda'`` every stage is a hand-written CUDA kernel; with
     ``device='cpu'`` the same wrappers run their plain versions.
+    ``layout``: 'half' (default) or 'full' planes.  ``mxu_dtype``: None or
+    ``torch.bfloat16`` (half layout only), the Y stage's operand rounding.
     """
     _check_options(layout, mxu_dtype)
     device = resolve_device(device)
-    return _pipeline((snap_u_half, snap_y_half, snap_fused_de_half), cfg,
-                     beta, beta0, dx, dy, dz, nbr_idx, mask, dtype, device,
-                     with_energy)
+    return _pipeline(_STAGES[layout], layout, cfg, beta, beta0, dx, dy, dz,
+                     nbr_idx, mask, dtype, device, with_energy, mxu_dtype)
 
 
 def plain_force_pipeline(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx,
                          mask, dtype=torch.float32, device='cuda',
-                         with_energy=True):
+                         with_energy=True, layout: str = 'half',
+                         mxu_dtype=None):
     """The same pipeline built from the plain stage versions on any
     device: the yardstick the kernel pipeline is held against on the card
-    (on the CPU, :func:`snap_force_pipeline` already runs these)."""
+    (on the CPU, :func:`snap_force_pipeline` already runs these).  The
+    force assembly is the same in both."""
+    _check_options(layout, mxu_dtype)
     device = resolve_device(device)
-    return _pipeline((snap_u_half_plain, snap_y_half_plain,
-                      snap_fused_de_half_plain), cfg, beta, beta0, dx, dy,
-                     dz, nbr_idx, mask, dtype, device, with_energy)
+    return _pipeline(_PLAIN_STAGES[layout], layout, cfg, beta, beta0, dx, dy,
+                     dz, nbr_idx, mask, dtype, device, with_energy, mxu_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -175,18 +207,36 @@ def plain_force_pipeline(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx,
 # ---------------------------------------------------------------------------
 
 
+def _planes(z, rows, dtype, pad):
+    """Complex [natoms, idxu_max] -> re/im planes [rows, natoms + pad] of
+    the chosen flat rows (None: all)."""
+    z = z if rows is None else z[:, rows]
+    return tuple(torch.nn.functional.pad(p.T.to(dtype), (0, pad)).contiguous()
+                 for p in (z.real, z.imag))
+
+
+def _half_rows(cfg, layout, device):
+    """Full-space index of each half row, or None for the full layout."""
+    if layout == 'full':
+        return None
+    return torch.as_tensor(cfg.index.half_to_full, dtype=torch.long,
+                           device=device)
+
+
 def snap_ui_kernel(cfg: SnapConfig, dx, dy, dz, mask, dtype=torch.float32,
                    device='cuda', layout: str = 'half'):
-    """Ulisttot through the U stage: complex [natoms, idxu_max] (the half
-    planes mirror-expanded, self term included)."""
+    """Ulisttot through the U stage: complex [natoms, idxu_max], self term
+    included (the half layout's planes mirror-expanded)."""
     _check_options(layout, None)
     device = resolve_device(device)
     disp, _, natoms = _to_layout(cfg, dx, dy, dz, mask, dtype, device)
-    h_r, h_i = snap_u_half(disp, twojmax=cfg.twojmax, rcut=cfg.rcut,
-                           rmin0=cfg.rmin0, rfac0=cfg.rfac0,
-                           switch_flag=cfg.switch_flag)
-    ut_r, ut_i = half_planes_to_full(
-        cfg, h_r + _self_planes(cfg, dtype, device), h_i)
+    u_stage = _STAGES[layout][0]
+    ut_r, ut_i = u_stage(disp, twojmax=cfg.twojmax, rcut=cfg.rcut,
+                         rmin0=cfg.rmin0, rfac0=cfg.rfac0,
+                         switch_flag=cfg.switch_flag)
+    ut_r = ut_r + _self_planes(cfg, dtype, device, layout)
+    if layout == 'half':
+        ut_r, ut_i = half_planes_to_full(cfg, ut_r, ut_i)
     return torch.complex(ut_r[:, :natoms], ut_i[:, :natoms]).T
 
 
@@ -203,17 +253,18 @@ def snap_yi_kernel(cfg: SnapConfig, ulisttot, beta, dtype=torch.float32,
     idx = cfg.index
     ulisttot = torch.as_tensor(ulisttot, device=device)
     natoms = ulisttot.shape[0]
-    pad = (-natoms) % LANES
-    h2f = torch.as_tensor(idx.half_to_full, dtype=torch.long, device=device)
-    ut = ulisttot[:, h2f]
-    ut_r = torch.nn.functional.pad(ut.real.T.to(dtype), (0, pad)).contiguous()
-    ut_i = torch.nn.functional.pad(ut.imag.T.to(dtype), (0, pad)).contiguous()
-    beta = torch.as_tensor(beta, device=device)
-    coef = y_coef_half(beta, cfg.twojmax).to(dtype)
-    y_r, y_i = snap_y_half(ut_r, ut_i, coef, twojmax=cfg.twojmax)
-    y_h = torch.complex(y_r[:, :natoms], y_i[:, :natoms]).T
-    out = torch.zeros((natoms, idx.idxu_max), dtype=y_h.dtype, device=device)
-    out[:, h2f] = y_h
+    rows = _half_rows(cfg, layout, device)
+    ut_r, ut_i = _planes(ulisttot, rows, dtype, (-natoms) % LANES)
+    _, y_stage, _, coef_of = _STAGES[layout]
+    coef = coef_of(torch.as_tensor(beta, device=device),
+                   cfg.twojmax).to(dtype)
+    y_kw = {} if mxu_dtype is None else dict(mxu_dtype=mxu_dtype)
+    y_r, y_i = y_stage(ut_r, ut_i, coef, twojmax=cfg.twojmax, **y_kw)
+    y = torch.complex(y_r[:, :natoms], y_i[:, :natoms]).T
+    if rows is None:
+        return y
+    out = torch.zeros((natoms, idx.idxu_max), dtype=y.dtype, device=device)
+    out[:, rows] = y
     return out
 
 
@@ -224,14 +275,11 @@ def snap_dedr_kernel(cfg: SnapConfig, dx, dy, dz, mask, ylist,
     [natoms, nnbor, 3].  ``ylist``: complex [natoms, idxu_max]."""
     _check_options(layout, None)
     device = resolve_device(device)
-    idx = cfg.index
     disp, _, natoms = _to_layout(cfg, dx, dy, dz, mask, dtype, device)
-    pad = disp.shape[-1] - natoms
-    h2f = torch.as_tensor(idx.half_to_full, dtype=torch.long, device=device)
-    yl = torch.as_tensor(ylist, device=device)[:, h2f]
-    y_r = torch.nn.functional.pad(yl.real.T.to(dtype), (0, pad)).contiguous()
-    y_i = torch.nn.functional.pad(yl.imag.T.to(dtype), (0, pad)).contiguous()
-    dedr = snap_fused_de_half(disp, y_r, y_i, twojmax=cfg.twojmax,
+    y_r, y_i = _planes(torch.as_tensor(ylist, device=device),
+                       _half_rows(cfg, layout, device), dtype,
+                       disp.shape[-1] - natoms)
+    dedr = _STAGES[layout][2](disp, y_r, y_i, twojmax=cfg.twojmax,
                               rcut=cfg.rcut, rmin0=cfg.rmin0,
                               rfac0=cfg.rfac0, switch_flag=cfg.switch_flag)
     return dedr[:, :3, :natoms].permute(2, 0, 1)

@@ -12,8 +12,8 @@ with weights w from the half-plane sum (0.5 at j = 0 and on the middle
 element of the middle row at even j).  Row 3 of the output is 0.
 
 - :func:`snap_fused_de_half` — the wrapper: CPU tensors run the plain
-  version, CUDA tensors launch ``csrc/snap_fused_de_half.cu`` (one thread
-  per pair), anything else raises.
+  version, CUDA tensors launch ``csrc/snap_fused_de.cu`` (one thread per
+  pair), anything else raises.
 - :func:`snap_fused_de_half_plain` — the same function in plain PyTorch,
   vectorized over all pairs.
 """
@@ -105,35 +105,41 @@ def snap_fused_de_half_plain(disp, y_r, y_i, *, twojmax, rcut, rmin0=0.0,
     return out
 
 
-def snap_fused_de_half(disp, y_r, y_i, *, twojmax, rcut, rmin0=0.0,
-                       rfac0=0.99363, switch_flag=True):
-    """disp [nnbor, 4, natoms_pad]; y_r/y_i half planes
-    [idxu_half_max, natoms_pad] -> dedr [nnbor, 4, natoms_pad]."""
-    check_disp(disp, twojmax)
-    nh = build_index(twojmax).idxu_half_max
+def check_y(disp, y_r, y_i, nrows):
     for name, t in (('y_r', y_r), ('y_i', y_i)):
         if t.dtype != disp.dtype or t.device != disp.device:
             raise TypeError(f'{name}: dtype/device {t.dtype}/{t.device} != '
                             f'{disp.dtype}/{disp.device}')
-        if tuple(t.shape) != (nh, disp.shape[2]) or not t.is_contiguous():
-            raise ValueError(f'{name} must be contiguous [{nh}, '
+        if tuple(t.shape) != (nrows, disp.shape[2]) or not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous [{nrows}, '
                              f'{disp.shape[2]}], got {tuple(t.shape)}')
-    geo = dict(twojmax=twojmax, rcut=rcut, rmin0=rmin0, rfac0=rfac0,
-               switch_flag=switch_flag)
+
+
+def fused_de(name, plain, nrows, disp, y_r, y_i, geo):
+    """The wrapper of both fused dE stages: checks, then the plain version
+    on a CPU tensor or kernel ``name`` on a CUDA tensor."""
+    check_disp(disp, geo['twojmax'])
+    check_y(disp, y_r, y_i, nrows)
     if disp.device.type == 'cpu':
-        return snap_fused_de_half_plain(disp, y_r, y_i, **geo)
+        return plain(disp, y_r, y_i, **geo)
     if disp.device.type != 'cuda':
-        raise RuntimeError(
-            f'snap_fused_de_half: no kernel for device {disp.device}')
+        raise RuntimeError(f'{name}: no kernel for device {disp.device}')
     nnbor, _, n = disp.shape
     out = torch.empty_like(disp)
-    sym = 'snap_fused_de_half_f32' if disp.dtype == torch.float32 else \
-        'snap_fused_de_half_f64'
-    _build.launch('snap_fused_de_half', sym, _ARGS, disp, y_r, y_i, out,
-                  rootpq(disp.dtype, disp.device), nnbor, n, twojmax,
-                  float(rcut), float(rmin0), float(rfac0), int(switch_flag))
-    snap_fused_de_half.launches += 1
+    sym = name + ('_f32' if disp.dtype == torch.float32 else '_f64')
+    _build.launch('snap_fused_de', sym, _ARGS, disp, y_r, y_i, out,
+                  rootpq(disp.dtype, disp.device), nnbor, n, geo['twojmax'],
+                  float(geo['rcut']), float(geo['rmin0']),
+                  float(geo['rfac0']), int(geo['switch_flag']))
+    _build.LAUNCHES[name] += 1
     return out
 
 
-snap_fused_de_half.launches = 0
+def snap_fused_de_half(disp, y_r, y_i, *, twojmax, rcut, rmin0=0.0,
+                       rfac0=0.99363, switch_flag=True):
+    """disp [nnbor, 4, natoms_pad]; y_r/y_i half planes
+    [idxu_half_max, natoms_pad] -> dedr [nnbor, 4, natoms_pad]."""
+    return fused_de('snap_fused_de_half', snap_fused_de_half_plain,
+                    build_index(twojmax).idxu_half_max, disp, y_r, y_i,
+                    dict(twojmax=twojmax, rcut=rcut, rmin0=rmin0,
+                         rfac0=rfac0, switch_flag=switch_flag))

@@ -1,15 +1,16 @@
-"""Half-plane U stage: per atom, sum over masked neighbors of sfac * u_j.
+"""U stage: per atom, sum over masked neighbors of sfac * u_j.
 
-Replaces the TPU kernel ``repro/kernels/snap_u.py:snap_u_half_pallas``.
+Replaces two TPU kernels of ``repro/kernels/snap_u.py``:
 
-- :func:`snap_u_half` — the wrapper: a CPU tensor runs the plain version,
-  a CUDA tensor launches the hand-written kernel
-  (``csrc/snap_u_half.cu``), anything else raises.
-- :func:`snap_u_half_plain` — the same function in plain PyTorch, the
-  recursion vectorized over all (neighbor, atom) pairs.
+- :func:`snap_u_half` — ``snap_u_half_pallas``: the left rows 2mb <= j,
+  planes ``[idxu_half_max, natoms_pad]`` (the pipeline's default layout);
+- :func:`snap_u_full` — ``snap_u_pallas``: every row, planes
+  ``[idxu_max, natoms_pad]`` (``layout='full'``).
 
-The CUDA kernel runs one thread per atom over its neighbors (see the
-source for its bound on the H100 and what the design does about it).
+Each wrapper runs its plain PyTorch version (``*_plain``, the recursion
+vectorized over all (neighbor, atom) pairs) on a CPU tensor, launches its
+hand-written kernel (``csrc/snap_u.cu``, one thread per atom; see the
+source for its bound on the H100) on a CUDA tensor, and raises otherwise.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .common import MAX_TWOJMAX, geom_ck, rootpq, u_half_level_step
+from .common import (MAX_TWOJMAX, geom_ck, rootpq, u_half_level_step,
+                     u_level_step)
 from ..core.indices import build_index
 
 _ARGS = (_build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
@@ -39,10 +41,10 @@ def check_disp(disp, twojmax):
         raise ValueError(f'twojmax={twojmax} outside 0..{MAX_TWOJMAX}')
 
 
-def snap_u_half_plain(disp, *, twojmax, rcut, rmin0=0.0, rfac0=0.99363,
-                      switch_flag=True):
-    """Plain version: disp [nnbor, 4, N] -> (ut_r, ut_i) [idxu_half_max, N],
-    the neighbor-accumulated raw U sums on the half rows (no self term)."""
+def _u_plain(disp, level_step, rows_of, nrows, *, twojmax, rcut, rmin0,
+             rfac0, switch_flag):
+    """Recursion vectorized over all pairs, each level's rows weighted by
+    sfac, summed over neighbors: [nrows, N] re/im planes."""
     nnbor, _, n = disp.shape
     x, y, z, m = (disp[:, c, :].reshape(-1) for c in range(4))
     a_r, a_i, b_r, b_i, sfac = geom_ck(x, y, z, rcut, rmin0, rfac0,
@@ -53,37 +55,67 @@ def snap_u_half_plain(disp, *, twojmax, rcut, rmin0=0.0, rfac0=0.99363,
     lvl_i = torch.zeros_like(lvl_r)
     outs_r, outs_i = [sfac[None, :]], [torch.zeros_like(sfac)[None, :]]
     for j in range(1, twojmax + 1):
-        lvl_r, lvl_i = u_half_level_step(lvl_r, lvl_i, a_r, a_i, b_r, b_i, j)
-        rows = (j // 2 + 1) * (j + 1)
-        outs_r.append(sfac * lvl_r.reshape(rows, -1))
-        outs_i.append(sfac * lvl_i.reshape(rows, -1))
-    nh = build_index(twojmax).idxu_half_max
-    return (torch.cat(outs_r).reshape(nh, nnbor, n).sum(dim=1),
-            torch.cat(outs_i).reshape(nh, nnbor, n).sum(dim=1))
+        lvl_r, lvl_i = level_step(lvl_r, lvl_i, a_r, a_i, b_r, b_i, j)
+        outs_r.append(sfac * lvl_r.reshape(rows_of(j), -1))
+        outs_i.append(sfac * lvl_i.reshape(rows_of(j), -1))
+    return (torch.cat(outs_r).reshape(nrows, nnbor, n).sum(dim=1),
+            torch.cat(outs_i).reshape(nrows, nnbor, n).sum(dim=1))
+
+
+def snap_u_half_plain(disp, *, twojmax, rcut, rmin0=0.0, rfac0=0.99363,
+                      switch_flag=True):
+    """Plain version: disp [nnbor, 4, N] -> (ut_r, ut_i) [idxu_half_max, N],
+    the neighbor-accumulated raw U sums on the half rows (no self term)."""
+    return _u_plain(disp, u_half_level_step, lambda j: (j // 2 + 1) * (j + 1),
+                    build_index(twojmax).idxu_half_max, twojmax=twojmax,
+                    rcut=rcut, rmin0=rmin0, rfac0=rfac0,
+                    switch_flag=switch_flag)
+
+
+def snap_u_full_plain(disp, *, twojmax, rcut, rmin0=0.0, rfac0=0.99363,
+                      switch_flag=True):
+    """Plain version: disp [nnbor, 4, N] -> (ut_r, ut_i) [idxu_max, N],
+    every row, each level mirror-filled as it is built
+    (``common.u_level_step``), no self term."""
+    return _u_plain(disp, u_level_step, lambda j: (j + 1) ** 2,
+                    build_index(twojmax).idxu_max, twojmax=twojmax,
+                    rcut=rcut, rmin0=rmin0, rfac0=rfac0,
+                    switch_flag=switch_flag)
+
+
+def _u(name, plain, nrows, disp, geo):
+    check_disp(disp, geo['twojmax'])
+    if disp.device.type == 'cpu':
+        return plain(disp, **geo)
+    if disp.device.type != 'cuda':
+        raise RuntimeError(f'{name}: no kernel for device {disp.device}')
+    nnbor, _, n = disp.shape
+    out_r = torch.empty((nrows, n), dtype=disp.dtype, device=disp.device)
+    out_i = torch.empty_like(out_r)
+    sym = name + ('_f32' if disp.dtype == torch.float32 else '_f64')
+    _build.launch('snap_u', sym, _ARGS, disp, out_r, out_i,
+                  rootpq(disp.dtype, disp.device), nnbor, n, geo['twojmax'],
+                  float(geo['rcut']), float(geo['rmin0']),
+                  float(geo['rfac0']), int(geo['switch_flag']))
+    _build.LAUNCHES[name] += 1
+    return out_r, out_i
 
 
 def snap_u_half(disp, *, twojmax, rcut, rmin0=0.0, rfac0=0.99363,
                 switch_flag=True):
     """Half-plane U: disp [nnbor, 4, natoms_pad] (x, y, z, mask) ->
     (ut_r, ut_i) [idxu_half_max, natoms_pad], self term NOT included."""
-    check_disp(disp, twojmax)
-    geo = dict(twojmax=twojmax, rcut=rcut, rmin0=rmin0, rfac0=rfac0,
-               switch_flag=switch_flag)
-    if disp.device.type == 'cpu':
-        return snap_u_half_plain(disp, **geo)
-    if disp.device.type != 'cuda':
-        raise RuntimeError(f'snap_u_half: no kernel for device {disp.device}')
-    nnbor, _, n = disp.shape
-    nh = build_index(twojmax).idxu_half_max
-    out_r = torch.empty((nh, n), dtype=disp.dtype, device=disp.device)
-    out_i = torch.empty_like(out_r)
-    sym = 'snap_u_half_f32' if disp.dtype == torch.float32 else \
-        'snap_u_half_f64'
-    _build.launch('snap_u_half', sym, _ARGS, disp, out_r, out_i,
-                  rootpq(disp.dtype, disp.device), nnbor, n, twojmax,
-                  float(rcut), float(rmin0), float(rfac0), int(switch_flag))
-    snap_u_half.launches += 1
-    return out_r, out_i
+    return _u('snap_u_half', snap_u_half_plain,
+              build_index(twojmax).idxu_half_max, disp,
+              dict(twojmax=twojmax, rcut=rcut, rmin0=rmin0, rfac0=rfac0,
+                   switch_flag=switch_flag))
 
 
-snap_u_half.launches = 0
+def snap_u_full(disp, *, twojmax, rcut, rmin0=0.0, rfac0=0.99363,
+                switch_flag=True):
+    """Full-plane U: disp [nnbor, 4, natoms_pad] (x, y, z, mask) ->
+    (ut_r, ut_i) [idxu_max, natoms_pad], self term NOT included."""
+    return _u('snap_u_full', snap_u_full_plain,
+              build_index(twojmax).idxu_max, disp,
+              dict(twojmax=twojmax, rcut=rcut, rmin0=rmin0, rfac0=rfac0,
+                   switch_flag=switch_flag))

@@ -1,19 +1,29 @@
-"""Half-plane adjoint Y stage (paper Sec. IV, LAMMPS compute_yi).
+"""Adjoint Y stage (paper Sec. IV, LAMMPS compute_yi).
 
-Replaces the TPU kernel ``repro/kernels/snap_y.py:snap_y_half_pallas``:
+Replaces two TPU kernels of ``repro/kernels/snap_y.py``:
 
-    Y_half[dest] += coef * (u1r + i s1 u1i) * (u2r + i s2 u2i)
+- :func:`snap_y_half` — ``snap_y_half_pallas``, the pipeline's default::
 
-over the mirror-folded half-space Clebsch-Gordan table
-(``SnapIndex.z_half_*``: sources and destination in half space, s = +-1
-conjugation factors on the imaginary gathers, mirror signs folded into the
-CG weight), with ``coef = cg_folded * y_fac * beta[y_jjb]``.
+      Y_half[dest] += coef * (u1r + i s1 u1i) * (u2r + i s2 u2i)
 
-The TPU kernel fed this table to one-hot matmuls in 512-entry tiles; here
-the table is sorted by destination into CSR row pointers once per 2J
-(:func:`y_half_csr`), which is the form the CUDA kernel
-(``csrc/snap_y_half.cu``, one thread per (row, atom)) walks without
-atomics.  :func:`snap_y_half_plain` is the same function in plain PyTorch.
+  over the mirror-folded half-space Clebsch-Gordan table
+  (``SnapIndex.z_half_*``: sources and destination in half space, s = +-1
+  conjugation factors on the imaginary gathers, mirror signs folded into
+  the CG weight), with ``coef = cg_folded * y_fac * beta[y_jjb]``
+  (:func:`y_coef_half`).  Its ``mxu_dtype=torch.bfloat16`` option rounds
+  the operands to bfloat16 where the TPU kernel fed them to its matrix
+  unit, and sums in the planes' dtype.
+- :func:`snap_y_full` — ``snap_y_pallas`` (``layout='full'``): the same
+  sum over the full-space table (``SnapIndex.z_coo_*`` with the
+  destination ``idxz_jju[z_coo_dest]``), no s, coefficients from
+  :func:`y_coef`.  The mirror rows have no entries and read 0, as in
+  ``compute_ylist``.
+
+The TPU kernels fed these tables to one-hot matmuls in 512-entry tiles;
+here each table is sorted by destination into CSR row pointers once per 2J
+(:func:`y_half_csr`, :func:`y_full_csr`), which is the form the CUDA kernels
+(``csrc/snap_y.cu``, one thread per (row, atom)) walk without atomics.
+The ``*_plain`` functions are the same sums in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -29,54 +39,76 @@ from ..core.indices import build_index
 
 _CHUNK_BYTES = 256 * 1024 * 1024   # bound of one gathered [chunk, N] buffer
 _ARGS = (_build.P,) * 10 + (_build.I, _build.I)
+MXU_DTYPES = (None, torch.bfloat16)
 
 
-class YHalfCSR(NamedTuple):
-    """The half-space COO table sorted by destination (stable)."""
-    rowptr: np.ndarray    # [idxu_half_max + 1] int32
+class YCSR(NamedTuple):
+    """A COO table sorted by destination (stable), with CSR row pointers."""
+    rowptr: np.ndarray    # [rows + 1] int32
     dest: np.ndarray      # [nnz] int32, non-decreasing
     src1: np.ndarray      # [nnz] int32
     src2: np.ndarray      # [nnz] int32
-    sig1: np.ndarray      # [nnz] +-1 on Im(u[src1])
-    sig2: np.ndarray      # [nnz] +-1 on Im(u[src2])
-    cg: np.ndarray        # [nnz] mirror-folded CG product
+    sig1: np.ndarray | None   # [nnz] +-1 on Im(u[src1]); None: full table
+    sig2: np.ndarray | None   # [nnz] +-1 on Im(u[src2]); None: full table
+    cg: np.ndarray        # [nnz] CG product (half: mirror-folded)
     jjz: np.ndarray       # [nnz] idxz row (runtime beta gather)
     order: np.ndarray     # [nnz] position of each entry in the COO table
 
 
+def _csr(dest, nrows, src1, src2, sig1, sig2, cg, jjz) -> YCSR:
+    order = np.argsort(dest, kind='stable')
+    counts = np.bincount(dest, minlength=nrows)
+    return YCSR(rowptr=np.concatenate([[0], np.cumsum(counts)]).astype(
+                    np.int32),
+                dest=dest[order].astype(np.int32),
+                src1=src1[order].astype(np.int32),
+                src2=src2[order].astype(np.int32),
+                sig1=None if sig1 is None else sig1[order],
+                sig2=None if sig2 is None else sig2[order],
+                cg=cg[order], jjz=jjz[order].astype(np.int32), order=order)
+
+
 @lru_cache(maxsize=16)
-def y_half_csr(twojmax: int) -> YHalfCSR:
+def y_half_csr(twojmax: int) -> YCSR:
+    """The half-space table (``z_half_*``) over ``idxu_half_max`` rows."""
     idx = build_index(twojmax)
-    order = np.argsort(idx.z_half_dest, kind='stable')
-    dest = idx.z_half_dest[order].astype(np.int32)
-    counts = np.bincount(dest, minlength=idx.idxu_half_max)
-    rowptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    return YHalfCSR(rowptr=rowptr, dest=dest,
-                    src1=idx.z_half_src1[order].astype(np.int32),
-                    src2=idx.z_half_src2[order].astype(np.int32),
-                    sig1=idx.z_half_sig1[order], sig2=idx.z_half_sig2[order],
-                    cg=idx.z_half_cg[order],
-                    jjz=idx.z_half_jjz[order].astype(np.int32), order=order)
+    return _csr(idx.z_half_dest, idx.idxu_half_max, idx.z_half_src1,
+                idx.z_half_src2, idx.z_half_sig1, idx.z_half_sig2,
+                idx.z_half_cg, idx.z_half_jjz)
 
 
 @lru_cache(maxsize=16)
-def y_half_tables(twojmax: int, dtype, device):
-    """CSR table on ``device``: (rowptr, dest, src1, src2) int32 and
-    (sig1, sig2) in ``dtype``."""
-    t = y_half_csr(twojmax)
+def y_full_csr(twojmax: int) -> YCSR:
+    """The full-space table (``z_coo_*``, destination ``idxz_jju[jjz]``)
+    over ``idxu_max`` rows."""
+    idx = build_index(twojmax)
+    return _csr(idx.idxz_jju[idx.z_coo_dest], idx.idxu_max, idx.z_coo_src1,
+                idx.z_coo_src2, None, None, idx.z_coo_cg, idx.z_coo_dest)
+
+
+_CSR = {'half': y_half_csr, 'full': y_full_csr}
+
+
+@lru_cache(maxsize=32)
+def y_tables(twojmax: int, dtype, device, layout: str = 'half'):
+    """A CSR table on ``device``: (rowptr, dest, src1, src2) int32 and
+    (sig1, sig2) in ``dtype``, None for the full table."""
+    t = _CSR[layout](twojmax)
     i32 = dict(dtype=torch.int32, device=device)
+    sig = [None if v is None else torch.as_tensor(v, dtype=dtype,
+                                                  device=device)
+           for v in (t.sig1, t.sig2)]
     return (torch.as_tensor(t.rowptr, **i32), torch.as_tensor(t.dest, **i32),
             torch.as_tensor(t.src1, **i32), torch.as_tensor(t.src2, **i32),
-            torch.as_tensor(t.sig1, dtype=dtype, device=device),
-            torch.as_tensor(t.sig2, dtype=dtype, device=device))
+            *sig)
 
 
-@lru_cache(maxsize=16)
-def _coef_tables(twojmax: int, dtype, device):
-    """(y_jjb, y_fac, jjz, cg) of :func:`y_coef_half` on ``device``, the
+@lru_cache(maxsize=32)
+def _coef_tables(twojmax: int, dtype, device, layout: str):
+    """(y_jjb, y_fac, jjz, cg) of a table's coefficient on ``device``, the
     floats already in ``dtype`` (read-only, cached so an evaluation
     uploads no table)."""
-    idx, t = build_index(twojmax), y_half_csr(twojmax)
+    idx, t = build_index(twojmax), _CSR[layout](twojmax)
     i64 = dict(dtype=torch.long, device=device)
     return (torch.as_tensor(idx.y_jjb, **i64),
             torch.as_tensor(idx.y_fac, dtype=dtype, device=device),
@@ -84,17 +116,48 @@ def _coef_tables(twojmax: int, dtype, device):
             torch.as_tensor(t.cg, dtype=dtype, device=device))
 
 
-def y_coef_half(beta, twojmax: int):
-    """Per-entry coefficient ``cg_folded * y_fac * beta[y_jjb]`` in the CSR
-    order of :func:`y_half_csr`: [nnz] in beta's dtype on beta's device.
-
-    The f64 host tables are cast to beta's dtype *before* multiplying, so
-    an f32 beta gives f32 arithmetic throughout."""
-    jjb, y_fac, jjz, cg = _coef_tables(twojmax, beta.dtype, beta.device)
+def _coef(beta, twojmax, layout):
+    # the f64 host tables are cast to beta's dtype *before* multiplying, so
+    # an f32 beta gives f32 arithmetic throughout
+    jjb, y_fac, jjz, cg = _coef_tables(twojmax, beta.dtype, beta.device,
+                                       layout)
     return cg * (y_fac * beta[jjb])[jjz]
 
 
-def _check(ut_r, ut_i, coef, twojmax):
+def y_coef_half(beta, twojmax: int):
+    """Per-entry coefficient ``cg_folded * y_fac * beta[y_jjb]`` in the CSR
+    order of :func:`y_half_csr`: [nnz] in beta's dtype on beta's device."""
+    return _coef(beta, twojmax, 'half')
+
+
+def y_coef(beta, twojmax: int):
+    """Per-entry coefficient ``cg * y_fac * beta[y_jjb]`` in the CSR order
+    of :func:`y_full_csr`: [nnz] in beta's dtype on beta's device."""
+    return _coef(beta, twojmax, 'full')
+
+
+def check_mxu_dtype(mxu_dtype):
+    if mxu_dtype not in MXU_DTYPES:
+        raise ValueError(f'mxu_dtype must be one of {MXU_DTYPES}, got '
+                         f'{mxu_dtype!r}')
+
+
+def round_bf16(x):
+    """x rounded to the nearest bfloat16 (ties to even), kept in x's dtype.
+
+    float64 rounds once, on its bits, as the kernel's ``__double2bfloat16``
+    does (``.to(torch.bfloat16)`` would round through float32: twice); the
+    values are taken to lie inside bfloat16's exponent range."""
+    if x.dtype != torch.float64:
+        return x.to(torch.bfloat16).to(x.dtype)
+    drop = 52 - 7                      # mantissa bits float64 -> bfloat16
+    bits = x.view(torch.int64)
+    odd = (bits >> drop) & 1
+    bits = (bits + ((1 << (drop - 1)) - 1) + odd) & ~((1 << drop) - 1)
+    return bits.view(torch.float64)
+
+
+def _check(ut_r, ut_i, coef, twojmax, layout):
     for name, t in (('ut_r', ut_r), ('ut_i', ut_i), ('coef', coef)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f'{name} must be a tensor')
@@ -105,56 +168,91 @@ def _check(ut_r, ut_i, coef, twojmax):
             raise ValueError(f'{name} must be contiguous')
     if ut_r.dtype not in (torch.float32, torch.float64):
         raise TypeError(f'dtype must be float32/float64, got {ut_r.dtype}')
-    nh = build_index(twojmax).idxu_half_max
-    if ut_r.ndim != 2 or ut_r.shape[0] != nh or ut_i.shape != ut_r.shape:
-        raise ValueError(f'U planes must be [{nh}, N], got '
+    t = _CSR[layout](twojmax)
+    nrows = len(t.rowptr) - 1
+    if ut_r.ndim != 2 or ut_r.shape[0] != nrows or ut_i.shape != ut_r.shape:
+        raise ValueError(f'U planes must be [{nrows}, N], got '
                          f'{tuple(ut_r.shape)} / {tuple(ut_i.shape)}')
-    nnz = len(y_half_csr(twojmax).dest)
-    if coef.shape != (nnz,):
-        raise ValueError(f'coef must be [{nnz}], got {tuple(coef.shape)}')
+    if coef.shape != (len(t.dest),):
+        raise ValueError(f'coef must be [{len(t.dest)}], got '
+                         f'{tuple(coef.shape)}')
 
 
-def snap_y_half_plain(ut_r, ut_i, coef, *, twojmax):
-    """Plain version: gathers and ``index_add_`` over the CSR-ordered
-    table, chunked so a gathered [chunk, N] buffer stays under 256 MB."""
+def _y_plain(ut_r, ut_i, coef, twojmax, layout, bf16=False):
+    """Gathers and ``index_add_`` over the CSR-ordered table, chunked so a
+    gathered [chunk, N] buffer stays under 256 MB."""
     dev, dt = ut_r.device, ut_r.dtype
-    _, dest, src1, src2, sig1, sig2 = y_half_tables(twojmax, dt, dev)
+    _, dest, src1, src2, sig1, sig2 = y_tables(twojmax, dt, dev, layout)
     y_r, y_i = torch.zeros_like(ut_r), torch.zeros_like(ut_i)
+    if bf16:
+        ut_r, ut_i, coef = round_bf16(ut_r), round_bf16(ut_i), \
+            round_bf16(coef)
     n = ut_r.shape[1]
     chunk = max(1, _CHUNK_BYTES // max(1, n * ut_r.element_size()))
     for lo in range(0, len(dest), chunk):
         s = slice(lo, lo + chunk)
         i1, i2 = src1[s].long(), src2[s].long()
-        v1r, v1i = ut_r[i1], ut_i[i1] * sig1[s, None]
-        v2r, v2i = ut_r[i2], ut_i[i2] * sig2[s, None]
+        v1r, v1i = ut_r[i1], ut_i[i1]
+        v2r, v2i = ut_r[i2], ut_i[i2]
+        if sig1 is not None:
+            v1i, v2i = v1i * sig1[s, None], v2i * sig2[s, None]
+        p_r, p_i = v1r * v2r - v1i * v2i, v1r * v2i + v1i * v2r
+        if bf16:
+            p_r, p_i = round_bf16(p_r), round_bf16(p_i)
         c = coef[s, None]
         d = dest[s].long()
-        y_r.index_add_(0, d, c * (v1r * v2r - v1i * v2i))
-        y_i.index_add_(0, d, c * (v1r * v2i + v1i * v2r))
+        y_r.index_add_(0, d, c * p_r)
+        y_i.index_add_(0, d, c * p_i)
     return y_r, y_i
 
 
-def snap_y_half(ut_r, ut_i, coef, *, twojmax):
+def snap_y_half_plain(ut_r, ut_i, coef, *, twojmax, mxu_dtype=None):
+    """Plain version of :func:`snap_y_half`."""
+    check_mxu_dtype(mxu_dtype)
+    return _y_plain(ut_r, ut_i, coef, twojmax, 'half',
+                    bf16=mxu_dtype is not None)
+
+
+def snap_y_full_plain(ut_r, ut_i, coef, *, twojmax):
+    """Plain version of :func:`snap_y_full`."""
+    return _y_plain(ut_r, ut_i, coef, twojmax, 'full')
+
+
+def _y(name, layout, ut_r, ut_i, coef, twojmax, mxu_dtype=None):
+    _check(ut_r, ut_i, coef, twojmax, layout)
+    check_mxu_dtype(mxu_dtype)
+    if ut_r.device.type == 'cpu':
+        return _y_plain(ut_r, ut_i, coef, twojmax, layout,
+                        bf16=mxu_dtype is not None)
+    if ut_r.device.type != 'cuda':
+        raise RuntimeError(f'{name}: no kernel for device {ut_r.device}')
+    if mxu_dtype is not None:
+        name += '_bf16'
+    rowptr, _, src1, src2, sig1, sig2 = y_tables(twojmax, ut_r.dtype,
+                                                 ut_r.device, layout)
+    y_r, y_i = torch.empty_like(ut_r), torch.empty_like(ut_i)
+    sym = name + ('_f32' if ut_r.dtype == torch.float32 else '_f64')
+    _build.launch('snap_y', sym, _ARGS, ut_r, ut_i, rowptr, src1, src2,
+                  sig1, sig2, coef, y_r, y_i, ut_r.shape[0], ut_r.shape[1])
+    _build.LAUNCHES[name] += 1
+    return y_r, y_i
+
+
+def snap_y_half(ut_r, ut_i, coef, *, twojmax, mxu_dtype=None):
     """ut_r/ut_i: [idxu_half_max, natoms_pad] half U planes (self term
     included); coef: [nnz] from :func:`y_coef_half`, in the planes' dtype.
 
     Returns (y_r, y_i) [idxu_half_max, natoms_pad]: the left rows of the
     adjoint on the weighted support (dropped weight-0 middle-row columns
-    read 0)."""
-    _check(ut_r, ut_i, coef, twojmax)
-    if ut_r.device.type == 'cpu':
-        return snap_y_half_plain(ut_r, ut_i, coef, twojmax=twojmax)
-    if ut_r.device.type != 'cuda':
-        raise RuntimeError(f'snap_y_half: no kernel for device {ut_r.device}')
-    rowptr, _, src1, src2, sig1, sig2 = y_half_tables(twojmax, ut_r.dtype,
-                                                      ut_r.device)
-    y_r, y_i = torch.empty_like(ut_r), torch.empty_like(ut_i)
-    sym = 'snap_y_half_f32' if ut_r.dtype == torch.float32 else \
-        'snap_y_half_f64'
-    _build.launch('snap_y_half', sym, _ARGS, ut_r, ut_i, rowptr, src1, src2,
-                  sig1, sig2, coef, y_r, y_i, ut_r.shape[0], ut_r.shape[1])
-    snap_y_half.launches += 1
-    return y_r, y_i
+    read 0).  ``mxu_dtype=torch.bfloat16`` rounds u, the complex products
+    and the coefficients to bfloat16 and sums in the planes' dtype (its
+    launches count as ``snap_y_half_bf16``)."""
+    return _y('snap_y_half', 'half', ut_r, ut_i, coef, twojmax, mxu_dtype)
 
 
-snap_y_half.launches = 0
+def snap_y_full(ut_r, ut_i, coef, *, twojmax):
+    """ut_r/ut_i: [idxu_max, natoms_pad] full U planes (self term
+    included); coef: [nnz] from :func:`y_coef`, in the planes' dtype.
+
+    Returns (y_r, y_i) [idxu_max, natoms_pad], the mirror rows 0."""
+    return _y('snap_y_full', 'full', ut_r, ut_i, coef, twojmax)

@@ -254,6 +254,38 @@ def test_energy_forces_dispatch():
         tsnap.energy_forces(*args, impl='nope', device=CPU)
 
 
+@pytest.mark.parametrize('key', ['f64', 'f32'])
+def test_assemble_forces_deterministic_by_destination(key):
+    """The by-destination assembly against the reference's scatter on a
+    make_cluster neighbor list with masked slots and one isolated atom (no
+    neighbors, named only by masked slots); two calls give equal bits, and
+    the CSR order is numpy's stable sort of the flat neighbor index."""
+    from repro_torch.kernels.assemble import destination_csr
+    jdt, tdt, _ = DTYPES[key]
+    natoms, nnbor = 12, 8
+    _, _, nbr_idx, mask, _ = make_cluster(natoms=natoms, nnbor=nnbor,
+                                          seed=5)
+    mask[3] = False
+    mask[nbr_idx == 3] = False
+    assert (~mask).any(axis=1).sum() > 1
+    dedr = np.random.default_rng(5).normal(size=(natoms, nnbor, 3))
+    want = rsnap.assemble_forces(jnp.asarray(dedr, jdt), jnp.asarray(nbr_idx),
+                                 jnp.asarray(mask), natoms)
+    args = (torch.as_tensor(dedr, dtype=tdt), torch.as_tensor(nbr_idx),
+            torch.as_tensor(mask), natoms)
+    got = tsnap.assemble_forces(*args)
+    assert got.dtype == tdt
+    _close(got.numpy(), want, 1e-14 if key == 'f64' else 1e-6)
+    assert not got[3].any()
+    assert torch.equal(got, tsnap.assemble_forces(*args))
+    order, rowptr = destination_csr(torch.as_tensor(nbr_idx), natoms)
+    np.testing.assert_array_equal(
+        order.numpy(), np.argsort(nbr_idx.reshape(-1), kind='stable'))
+    np.testing.assert_array_equal(
+        np.diff(rowptr.numpy()), np.bincount(nbr_idx.reshape(-1),
+                                             minlength=natoms))
+
+
 def test_assemble_forces_newton_third_law():
     """Assembly sums to zero net force, as the reference's does."""
     rng = np.random.default_rng(4)

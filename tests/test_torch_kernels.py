@@ -163,23 +163,27 @@ def test_u_half_multiblock_matches_pallas():
 
 
 def test_isolated_atoms_no_nan():
-    """Fully masked atoms (zero neighbors) must not poison lanes."""
+    """Fully masked atoms (zero neighbors) must not poison lanes: the half
+    and the full layout, and the bfloat16 Y operand option."""
     cfg = SnapConfig(twojmax=4, rcut=3.0)
     natoms, nnbor = 9, 5
     dx = np.zeros((natoms, nnbor))
     mask = np.zeros((natoms, nnbor), bool)
-    ut = ops.snap_ui_kernel(cfg, dx, dx, dx, mask, dtype=torch.float32,
-                            device='cpu')
-    assert torch.isfinite(ut.real).all() and torch.isfinite(ut.imag).all()
     idx = cfg.index
     expect = np.zeros(idx.idxu_max)
     expect[idx.self_diag] = cfg.wself
-    np.testing.assert_allclose(ut[0].real.numpy(), expect, atol=1e-6)
     beta = np.random.default_rng(0).normal(size=cfg.ncoeff)
-    e, _, f = ops.snap_force_pipeline(cfg, beta, 0.0, dx, dx, dx,
-                                      np.zeros((natoms, nnbor), int), mask,
-                                      device='cpu')
-    assert torch.isfinite(e) and bool((f == 0).all())
+    for layout, mxu_dtype in (('half', None), ('full', None),
+                              ('half', torch.bfloat16)):
+        ut = ops.snap_ui_kernel(cfg, dx, dx, dx, mask, dtype=torch.float32,
+                                device='cpu', layout=layout)
+        assert torch.isfinite(ut.real).all() and torch.isfinite(ut.imag).all()
+        np.testing.assert_allclose(ut[0].real.numpy(), expect, atol=1e-6)
+        e, _, f = ops.snap_force_pipeline(
+            cfg, beta, 0.0, dx, dx, dx, np.zeros((natoms, nnbor), int), mask,
+            device='cpu', layout=layout, mxu_dtype=mxu_dtype)
+        assert torch.isfinite(e) and bool((f == 0).all()), (layout,
+                                                            mxu_dtype)
 
 
 @pytest.mark.parametrize('twojmax', [2, 8])

@@ -132,15 +132,19 @@ def test_pipeline_2j14_matches_adjoint():
 
 
 def test_unported_options_raise():
+    """The option rules of the reference's pipeline: an unknown layout, an
+    unknown Y operand dtype, and the low-precision option on full planes
+    raise ValueError."""
     cfg = tsnap.SnapConfig(twojmax=2, rcut=3.0)
     (dx, dy, dz), nbr_idx, mask, beta = _inputs(2)
     args = (cfg, beta, 0.0, dx, dy, dz, nbr_idx, mask)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ops.snap_force_pipeline(*args, device=CPU, layout='full')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ops.snap_force_pipeline(*args, device=CPU, mxu_dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match='layout'):
         ops.snap_force_pipeline(*args, device=CPU, layout='quarter')
+    with pytest.raises(ValueError, match='half-layout'):
+        ops.snap_force_pipeline(*args, device=CPU, layout='full',
+                                mxu_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='mxu_dtype'):
+        ops.snap_force_pipeline(*args, device=CPU, mxu_dtype=torch.float16)
 
 
 def test_cpu_path_launches_no_kernel():
@@ -153,4 +157,6 @@ def test_cpu_path_launches_no_kernel():
                             device=CPU)
     assert ops.launch_counts() == before
     assert set(before) == {'snap_u_half', 'snap_y_half',
-                           'snap_fused_de_half'}
+                           'snap_y_half_bf16', 'snap_fused_de_half',
+                           'snap_u_full', 'snap_y_full',
+                           'snap_fused_de_full', 'assemble_forces'}
