@@ -24,7 +24,16 @@ at the same bars, <= 1e-2 for bfloat16; the bfloat16 kernel at least twice
 its bar away from the unrounded plain Y; relative NVE drift <= 1e-5; the
 full-plane run's potential energy at step 10 within 1e-10 of the
 half-plane run's.  Times are medians of CUDA-event timings after
-warm-up.  The last two lines are one JSON object per kernel
+warm-up (``ms``: one call between two events, wrapper host time
+included) and, for each kernel and library call, device time alone
+(``device_ms``: K back-to-back calls queued behind a spin kernel, between
+two events, divided by K).  The U and fused dE kernels' launch plans
+(``kernels/launch_plan.py``) are printed with the blocks an SM holds
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); each must launch at
+least one block per SM at snap-2j8.  The registers and stack frame of each
+kernel come from ``-Xptxas -v``; every fused dE kernel must keep its
+stack frame under 1 KB (its level state lives in shared memory).  The
+last two lines are one JSON object per kernel
 (``{"kernels": [...]}``) and the result line; any failed check exits
 nonzero without the result line.  Without a card it exits nonzero and
 prints no result.
@@ -77,6 +86,13 @@ PATHS = {
     'bf16': ('snap_u_half', 'snap_y_half_bf16', 'snap_fused_de_half',
              'assemble_forces'),
 }
+# kernels with a launch plan: name -> 'u' (u_plan) or 'de' (de_plan)
+PLANNED = {'snap_u_half': 'u', 'snap_u_full': 'u',
+           'snap_fused_de_half': 'de', 'snap_fused_de_full': 'de'}
+SMS = 132                    # H100 SXM
+STACK_MAX = 1024             # bytes of stack frame a fused dE kernel may use
+DEVICE_REPS = 20             # K of device_ms
+SPIN_CYCLES = int(2e8)       # ~0.1 s of spin ahead of the K calls
 FAILURES = []
 
 
@@ -101,6 +117,69 @@ def time_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, k=DEVICE_REPS, warmup=3):
+    """Device time of one call (ms): ``k`` calls queued behind a spin
+    kernel, so the device runs them back to back whatever the wrapper's
+    host time, timed between two events and divided by ``k``.  Returns
+    (ms, hidden): ``hidden`` is False if the host took longer to queue the
+    calls than the spin lasted (then host time leaks in)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin0, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    t0 = time.perf_counter()
+    spin0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(k):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    return start.elapsed_time(end) / k, host_ms < spin0.elapsed_time(start)
+
+
+def plan_of(name, cfg, dtype, n, nnbor):
+    """The launch plan of kernel ``name`` and the blocks an SM holds."""
+    import ctypes
+
+    from repro_torch.kernels import _build, launch_plan
+    kind = PLANNED[name]
+    plan = (launch_plan.u_plan if kind == 'u' else launch_plan.de_plan)(
+        cfg.twojmax, dtype, n, nnbor)
+    source = 'snap_u' if kind == 'u' else 'snap_fused_de'
+    blocks = ctypes.c_int(0)
+    _build.query(source, f'{source}_blocks_per_sm',
+                 (_build.I, _build.I, _build.I, _build.I, _build.P),
+                 int(dtype == torch.float64), int(name.endswith('_full')),
+                 plan.lanes * plan.threads, plan.smem, ctypes.byref(blocks))
+    return plan, blocks.value
+
+
+def ptxas_phase(built):
+    """Registers and stack frame of every kernel from ``-Xptxas -v``; the
+    fused dE kernels must keep their stack frame under STACK_MAX."""
+    from repro_torch.kernels import _build
+    report = {}
+    for lib, info in built.items():
+        for mangled, r in _build.ptxas_report(info['log']).items():
+            if 'registers' not in r:    # a device function, not a kernel
+                continue
+            report[mangled] = r
+            print(f'     ptxas {lib}: {mangled}: {r.get("registers")} '
+                  f'registers, {r.get("stack")} B stack frame, '
+                  f'{r.get("spill_stores")} / {r.get("spill_loads")} B spill '
+                  'stores / loads', flush=True)
+    de = {k: v for k, v in report.items() if 'snap_fused_de_kernel' in k}
+    check(len(de) == 4 and all(v.get('stack', STACK_MAX) < STACK_MAX
+                               for v in de.values()),
+          f'ptxas: {len(de)} fused dE kernels, stack frames '
+          f'{sorted(v.get("stack") for v in de.values())} B (< {STACK_MAX} B '
+          'each: the level state lives in shared memory)')
+    return report
 
 
 def rel_err(a, b):
@@ -287,16 +366,32 @@ def kernel_phase(cfg, beta, nbr_idx, mask, disp, dtype, dev, names):
                   f'2 x the bar {bar:.0e}: a kernel that skipped the '
                   'roundings would fail it)')
         ms, plain_ms = time_ms(kern), time_ms(plain, reps=10)
+        dev_ms, hidden = device_ms(kern)
         lib_ms = time_ms(library) if library is not None else None
+        lib_dev_ms = device_ms(library)[0] if library is not None else None
         b_ms, b_by = bound(nb, flops, dtype)
-        lib = f', index_add_ form {lib_ms:.4f} ms' if lib_ms else ''
-        print(f'     {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms{lib}, '
-              f'bound {b_ms:.4f} ms by {b_by}; {flops / 1e9:.3f} GFLOP, '
-              f'{nb / 1e6:.2f} MB; natoms_pad {layout.shape[2]})',
-              flush=True)
+        lib = (f', index_add_ form {lib_ms:.4f} ms, device {lib_dev_ms:.4f}'
+               ' ms' if lib_ms else '')
+        print(f'     {name}: {ms:.4f} ms per call, {dev_ms:.4f} ms device'
+              f'{"" if hidden else " (host time leaked in)"} (plain '
+              f'{plain_ms:.4f} ms{lib}, bound {b_ms:.4f} ms by {b_by}; '
+              f'{flops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB; natoms_pad '
+              f'{layout.shape[2]})', flush=True)
         out[name] = dict(max_abs_err=abs_err, max_rel_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms)
+                         library_ms=lib_ms, device_ms=dev_ms,
+                         device_ms_hidden=hidden,
+                         library_device_ms=lib_dev_ms)
+        if name in PLANNED:
+            plan, per_sm = plan_of(name, cfg, dtype, layout.shape[2], NNBOR)
+            print(f'     {name} plan: {plan.describe()}; {per_sm} resident '
+                  'per SM', flush=True)
+            out[name].update(plan=plan.describe(), blocks=plan.blocks,
+                             blocks_per_sm=per_sm)
+            if tj == 8:
+                check(plan.blocks >= SMS and per_sm >= 1,
+                      f'{name} {str(dtype)[6:]} 2J=8: {plan.blocks} blocks '
+                      f'(>= {SMS}), {per_sm} resident per SM (>= 1)')
         if gap is not None:
             out[name]['rel_gap_unrounded'] = gap
     return out
@@ -544,10 +639,7 @@ def main():
     built = _build.build()
     print(f'build: {time.perf_counter() - t0:.1f} s for '
           f'{len(built)} libraries (parallel nvcc, sm_90a)', flush=True)
-    for name, info in built.items():
-        for line in info['log'].splitlines():
-            if 'registers' in line or 'spill' in line or 'Compiling' in line:
-                print(f'     {name}: {line.strip()}')
+    ptxas_phase(built)
 
     cfg, beta, pos, box, nbr_idx, mask, disp = setup(8, dev)
     print(f'snap-2j8: {NATOMS} atoms, neighbors per atom '

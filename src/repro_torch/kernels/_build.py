@@ -9,7 +9,9 @@ never loaded.  A failed build raises with the compiler's output.
 
 Every exported function returns the ``cudaError_t`` of its launch; the
 wrappers call :func:`launch`, which raises when it is not 0, and then add
-one to their entry of :data:`LAUNCHES`.
+one to their entry of :data:`LAUNCHES`.  ``-Xptxas -v``'s report is kept
+beside each library (``.log``); :func:`ptxas_report` reads each kernel's
+registers, stack frame and spills from it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from functools import lru_cache
@@ -54,7 +57,7 @@ def build() -> dict:
     """Compile every missing library in parallel.
 
     Returns {name: dict(path, log)}; ``log`` holds ``-Xptxas -v``'s
-    registers / spill report for the libraries built by this call.
+    registers / spill report, kept beside the library for later calls.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
@@ -62,7 +65,9 @@ def build() -> dict:
     for name in SOURCES:
         path = _target(name)
         if path.exists():
-            out[name] = dict(path=path, log='(cached)')
+            log = path.with_suffix('.log')
+            out[name] = dict(path=path, log=log.read_text()
+                             if log.exists() else '(cached, no log)')
             continue
         nvcc = nvcc or _nvcc()
         tmp = path.with_suffix(f'.{os.getpid()}.tmp')
@@ -76,10 +81,36 @@ def build() -> dict:
             tmp.unlink(missing_ok=True)
             failed.append(f'--- {name} (nvcc exit {proc.returncode})\n{log}')
             continue
+        path.with_suffix('.log').write_text(log)
         os.replace(tmp, path)
         out[name] = dict(path=path, log=log)
     if failed:
         raise RuntimeError('CUDA kernel build failed:\n' + '\n'.join(failed))
+    return out
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: dict(registers, stack, spill_stores,
+    spill_loads)} from an ``-Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            out[name]['registers'] = int(m.group(1))
     return out
 
 
@@ -105,6 +136,17 @@ def _function(source: str, symbol: str, argtypes: tuple):
 P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # kernel launches per wrapper entry (the wrappers count; CPU runs do not)
 LAUNCHES = collections.Counter()
+
+
+def query(source: str, symbol: str, argtypes: tuple, *args) -> None:
+    """Call a non-launching function of library ``source`` on the current
+    device (its last two arguments are the device and an unused stream)
+    and raise on a CUDA error."""
+    fn, err_string = _function(source, symbol, tuple(argtypes) + (I, P))
+    code = fn(*args, torch.cuda.current_device(), None)
+    if code != 0:
+        raise RuntimeError(f'{symbol}: CUDA error {code} '
+                           f'({err_string(code).decode()})')
 
 
 def launch(source: str, symbol: str, argtypes: tuple, *args) -> None:

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 LANES = 128          # atom padding of the plane layout (reference contract)
-MAX_TWOJMAX = 14     # largest 2J the CUDA kernels' local state is sized for
+MAX_TWOJMAX = 14     # largest 2J of the CUDA kernels (rootpq table, plans)
 PI = 3.141592653589793
 
 

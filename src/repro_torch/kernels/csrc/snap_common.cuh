@@ -15,9 +15,16 @@
 #include <cuda_runtime.h>
 
 #define SNAP_MAXJ 14
-// largest half level: (14/2 + 1) * (14 + 1)
-#define SNAP_HALF_LEVEL_MAX 120
+// rootpq table: [SNAP_MAXJ + 1]^2, row stride SNAP_RP_STRIDE
+#define SNAP_RP_STRIDE (SNAP_MAXJ + 1)
+#define SNAP_RP_SIZE (SNAP_RP_STRIDE * SNAP_RP_STRIDE)
 #define SNAP_PI 3.141592653589793
+// Largest block the launch plans may ask for (H100: 227 KB of dynamic
+// shared memory, 1024 threads); kernels/launch_plan.py holds the same.
+#define SNAP_SMEM_MAX 232448
+#define SNAP_THREADS_MAX 1024
+// devices whose shared-memory grant a launcher remembers
+#define SNAP_DEVICES 16
 
 __device__ __forceinline__ float snap_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double snap_sqrt(double x) { return sqrt(x); }
@@ -110,24 +117,69 @@ __device__ __forceinline__ PairCK<T> geom_ck_grad(T x, T y, T z, T rcut,
   return g;
 }
 
-// Element (mb, ma) of full layer j-1, read from its half storage `prev`
-// (rows 0..(j-1)/2, stride j).  The one row past the half (mb = j/2 at
-// even j) comes from its mirror:
+// The level state of the U and fused dE kernels lives in shared memory,
+// [element][lane] with the block's lanes (atoms or pairs) on the fast axis,
+// sized per launch by their launch plans for the largest level of the
+// launch's 2J.  The recursion of left-rows element
+// (mb, ma) of level j reads the previous level's elements (mb, ma) (conj(a)
+// term, ma < j) and (mb, ma - 1) (conj(b) term, ma > 0) from its half
+// storage (rows 0..(j-1)/2, stride j).  The one row past the half (mb = j/2
+// at even j) comes from its mirror:
 //     u(mb, ma) = (-1)^(mb+ma) conj(u(j-1-mb, j-1-ma))
-// (reference kernels/common.half_prev_rows).
+// (reference kernels/common.half_prev_rows).  prev_index gives the stored
+// element; the term coefficients carry the mirror's signs, so
+//     u_j(mb, ma) = conj(a) (c_r u_r + i c_i u_i)[a term]
+//                 + conj(b) (c_r u_r + i c_i u_i)[b term]
+// with (u_r, u_i) the stored values and c = 0 for an absent term.
+
+// Half-storage index in level j - 1 of full element (mb, ma), 2 mb <= j.
+__device__ __forceinline__ int prev_index(int j, int mb, int ma) {
+  return 2 * mb <= j - 1 ? mb * j + ma : (j - 1 - mb) * j + (j - 1 - ma);
+}
+
 template <typename T>
-__device__ __forceinline__ void prev_elem(const T* prev_r, const T* prev_i,
-                                          int j, int mb, int ma, T* pr,
-                                          T* pi) {
-  if (2 * mb <= j - 1) {
-    *pr = prev_r[mb * j + ma];
-    *pi = prev_i[mb * j + ma];
-  } else {
-    const int e = (j - 1 - mb) * j + (j - 1 - ma);
-    const T s = ((mb + ma) & 1) ? T(-1) : T(1);
-    *pr = s * prev_r[e];
-    *pi = -s * prev_i[e];
-  }
+struct TermCoef {
+  T c_r, c_i;
+};
+
+// rootpq coefficient c times the mirror signs of stored element (mb, ma')
+// of level j - 1: (c, c) on a stored row, (s c, -s c) on the mirrored one,
+// s = (-1)^(mb + ma').
+template <typename T>
+__device__ __forceinline__ TermCoef<T> signed_coef(T c, int j, int mb,
+                                                   int ma_prev) {
+  if (2 * mb <= j - 1) return {c, c};
+  const T s = ((mb + ma_prev) & 1) ? -c : c;
+  return {s, -s};
+}
+
+// conj(a) term of element (mb, ma) of level j: rootpq[j - ma][j - mb] on
+// stored element (mb, ma); 0 at ma = j.
+template <typename T>
+__device__ __forceinline__ TermCoef<T> a_term_coef(const T* rp, int j,
+                                                   int mb, int ma) {
+  if (ma >= j) return {T(0), T(0)};
+  return signed_coef(rp[(j - ma) * SNAP_RP_STRIDE + (j - mb)], j, mb, ma);
+}
+
+// conj(b) term: -rootpq[ma][j - mb] on stored element (mb, ma - 1); 0 at
+// ma = 0.
+template <typename T>
+__device__ __forceinline__ TermCoef<T> b_term_coef(const T* rp, int j,
+                                                   int mb, int ma) {
+  if (ma <= 0) return {T(0), T(0)};
+  return signed_coef(-rp[ma * SNAP_RP_STRIDE + (j - mb)], j, mb, ma - 1);
+}
+
+// The contiguous run [*lo, *hi) of a level's `size` left-rows elements that
+// thread y of `threads` computes: runs of ceil(size / threads), so a thread
+// walks along rows and carries the previous column's stored element from
+// one element to the next (kernels/launch_plan.element_map repeats it).
+__device__ __forceinline__ void run_bounds(int size, int threads, int y,
+                                           int* lo, int* hi) {
+  const int c = (size + threads - 1) / threads;
+  *lo = min(y * c, size);
+  *hi = min(*lo + c, size);
 }
 
 // Half-plane contraction weight of element (mb, ma) at level j: 1 on rows
@@ -143,8 +195,29 @@ __device__ __forceinline__ T half_weight(int j, int mb, int ma) {
 
 // Plane rows of level j: (j/2 + 1)(j + 1) left rows in the half layout,
 // (j + 1)^2 in the full one.
-__device__ __forceinline__ int level_size(int j, bool full) {
+__host__ __device__ __forceinline__ int level_size(int j, bool full) {
   return full ? (j + 1) * (j + 1) : (j / 2 + 1) * (j + 1);
+}
+
+// Rows of a whole plane up to 2J = twojmax (idxu_half_max / idxu_max).
+__host__ __device__ __forceinline__ int plane_rows(int twojmax, bool full) {
+  int rows = 0;
+  for (int j = 0; j <= twojmax; ++j) rows += level_size(j, full);
+  return rows;
+}
+
+// Dynamic shared memory above the 48 KB default must be granted to a kernel
+// on each device before a launch uses it.  Every kernel is granted the most
+// a launch plan may ask for, SNAP_SMEM_MAX, so no grant lowers another (the
+// attribute is an upper limit and does not change occupancy); *granted, a
+// launcher's static where given, skips the call after the first success.
+template <typename K>
+static cudaError_t allow_smem(K kernel, bool* granted = nullptr) {
+  if (granted && *granted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SNAP_SMEM_MAX);
+  if (granted) *granted = err == cudaSuccess;
+  return err;
 }
 
 extern "C" const char* snap_cuda_error_string(int code) {

@@ -13,9 +13,9 @@ row, 0.5 at j = 0 and on the middle element of the middle row).  Row 3 of
 the output is 0.
 
 - :func:`snap_fused_de_full` — the wrapper: CPU tensors run the plain
-  version, CUDA tensors launch ``csrc/snap_fused_de.cu`` (one thread per
-  pair; it carries the left rows only, since w is 0 on the others, and
-  reads Y at their full-plane rows), anything else raises.
+  version, CUDA tensors launch ``csrc/snap_fused_de.cu`` (the half
+  kernel's design; it carries the left rows only, since w is 0 on the
+  others, and reads Y at their full-plane rows), anything else raises.
 - :func:`snap_fused_de_full_plain` — the same function in plain PyTorch,
   built like the TPU kernel: full layers through
   ``common.dual_level_step``, vectorized over all pairs.

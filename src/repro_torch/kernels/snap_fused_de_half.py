@@ -12,8 +12,9 @@ with weights w from the half-plane sum (0.5 at j = 0 and on the middle
 element of the middle row at even j).  Row 3 of the output is 0.
 
 - :func:`snap_fused_de_half` — the wrapper: CPU tensors run the plain
-  version, CUDA tensors launch ``csrc/snap_fused_de.cu`` (one thread per
-  pair), anything else raises.
+  version, CUDA tensors launch ``csrc/snap_fused_de.cu`` (pairs x the
+  elements of each level, the level state in shared memory, with the plan
+  of :func:`launch_plan.de_plan`), anything else raises.
 - :func:`snap_fused_de_half_plain` — the same function in plain PyTorch,
   vectorized over all pairs.
 """
@@ -25,11 +26,14 @@ import torch
 from . import _build
 from .common import (conj_mul, geom_ck_grad, half_prev_rows, level_coefs,
                      level_stitch, rootpq)
+from .launch_plan import de_plan
 from .snap_u import check_disp
 from ..core.indices import build_index
 
 _ARGS = (_build.P, _build.P, _build.P, _build.P, _build.P, _build.I,
-         _build.I, _build.I, _build.D, _build.D, _build.D, _build.I)
+         _build.I, _build.I, _build.D, _build.D, _build.D, _build.I,
+         # launch plan: lanes, threads, shared bytes
+         _build.I, _build.I, _build.I)
 
 
 def _cm_add(x, y):
@@ -125,12 +129,14 @@ def fused_de(name, plain, nrows, disp, y_r, y_i, geo):
     if disp.device.type != 'cuda':
         raise RuntimeError(f'{name}: no kernel for device {disp.device}')
     nnbor, _, n = disp.shape
+    plan = de_plan(geo['twojmax'], disp.dtype, n, nnbor)
     out = torch.empty_like(disp)
     sym = name + ('_f32' if disp.dtype == torch.float32 else '_f64')
     _build.launch('snap_fused_de', sym, _ARGS, disp, y_r, y_i, out,
                   rootpq(disp.dtype, disp.device), nnbor, n, geo['twojmax'],
                   float(geo['rcut']), float(geo['rmin0']),
-                  float(geo['rfac0']), int(geo['switch_flag']))
+                  float(geo['rfac0']), int(geo['switch_flag']), plan.lanes,
+                  plan.threads, plan.smem)
     _build.LAUNCHES[name] += 1
     return out
 

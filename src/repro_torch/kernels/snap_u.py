@@ -9,8 +9,10 @@ Replaces two TPU kernels of ``repro/kernels/snap_u.py``:
 
 Each wrapper runs its plain PyTorch version (``*_plain``, the recursion
 vectorized over all (neighbor, atom) pairs) on a CPU tensor, launches its
-hand-written kernel (``csrc/snap_u.cu``, one thread per atom; see the
-source for its bound on the H100) on a CUDA tensor, and raises otherwise.
+hand-written kernel (``csrc/snap_u.cu``: atom tiles x neighbor groups,
+the elements of each level shared by a block's threads, the sums in shared
+memory; see the source for its bound on the H100) on a CUDA tensor with
+the plan of :func:`launch_plan.u_plan`, and raises otherwise.
 """
 
 from __future__ import annotations
@@ -20,10 +22,13 @@ import torch
 from . import _build
 from .common import (MAX_TWOJMAX, geom_ck, rootpq, u_half_level_step,
                      u_level_step)
+from .launch_plan import u_plan
 from ..core.indices import build_index
 
 _ARGS = (_build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
-         _build.I, _build.D, _build.D, _build.D, _build.I)
+         _build.I, _build.D, _build.D, _build.D, _build.I,
+         # launch plan: lanes, threads, groups, shared bytes, partial planes
+         _build.I, _build.I, _build.I, _build.I, _build.P)
 
 
 def check_disp(disp, twojmax):
@@ -84,19 +89,26 @@ def snap_u_full_plain(disp, *, twojmax, rcut, rmin0=0.0, rfac0=0.99363,
 
 
 def _u(name, plain, nrows, disp, geo):
+    """The wrapper of both U stages."""
     check_disp(disp, geo['twojmax'])
     if disp.device.type == 'cpu':
         return plain(disp, **geo)
     if disp.device.type != 'cuda':
         raise RuntimeError(f'{name}: no kernel for device {disp.device}')
     nnbor, _, n = disp.shape
+    tj = geo['twojmax']
+    plan = u_plan(tj, disp.dtype, n, nnbor)
     out_r = torch.empty((nrows, n), dtype=disp.dtype, device=disp.device)
     out_i = torch.empty_like(out_r)
+    # the neighbor groups' partial sums [re, im][groups][idxu_half_max, n]
+    part = torch.empty((2, plan.groups, build_index(tj).idxu_half_max, n),
+                       dtype=disp.dtype, device=disp.device)
     sym = name + ('_f32' if disp.dtype == torch.float32 else '_f64')
     _build.launch('snap_u', sym, _ARGS, disp, out_r, out_i,
-                  rootpq(disp.dtype, disp.device), nnbor, n, geo['twojmax'],
+                  rootpq(disp.dtype, disp.device), nnbor, n, tj,
                   float(geo['rcut']), float(geo['rmin0']),
-                  float(geo['rfac0']), int(geo['switch_flag']))
+                  float(geo['rfac0']), int(geo['switch_flag']), plan.lanes,
+                  plan.threads, plan.groups, plan.smem, part)
     _build.LAUNCHES[name] += 1
     return out_r, out_i
 
