@@ -15,7 +15,8 @@ each path through ``repro_torch.md.integrate.run_nve(impl='kernel')`` with
 the launch counters set to 0 before and read after: 10 NVE steps on half
 planes (the main path), 10 on full planes, 4 with bfloat16 Y operands.  At
 2J = 14 (float32) it holds the half and full kernels against their plain
-versions and runs one pipeline evaluation.
+versions and times the half-plane pipeline (median of 5 evaluations after
+warm-up).
 
 Bars: kernel vs plain, max |difference| / max |plain| <= 1e-10 in float64
 and <= 1e-5 in float32, <= 1e-3 for the bfloat16 option; pipelines vs the
@@ -27,12 +28,14 @@ half-plane run's.  Times are medians of CUDA-event timings after
 warm-up (``ms``: one call between two events, wrapper host time
 included) and, for each kernel and library call, device time alone
 (``device_ms``: K back-to-back calls queued behind a spin kernel, between
-two events, divided by K).  The U and fused dE kernels' launch plans
+two events, divided by K).  The U, Y and fused dE kernels' launch plans
 (``kernels/launch_plan.py``) are printed with the blocks an SM holds
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); each must launch at
-least one block per SM at snap-2j8.  The registers and stack frame of each
-kernel come from ``-Xptxas -v``; every fused dE kernel must keep its
-stack frame under 1 KB (its level state lives in shared memory).  The
+least 132 blocks and hold at least one block per SM at snap-2j8.  The
+registers and stack frame of each kernel come from ``-Xptxas -v``; every
+fused dE kernel must keep its stack frame under 1 KB (its level state lives
+in shared memory), and all 24 Y kernel instances (six variants x four lane
+counts) must be in the report.  The
 last two lines are one JSON object per kernel
 (``{"kernels": [...]}``) and the result line; any failed check exits
 nonzero without the result line.  Without a card it exits nonzero and
@@ -86,9 +89,12 @@ PATHS = {
     'bf16': ('snap_u_half', 'snap_y_half_bf16', 'snap_fused_de_half',
              'assemble_forces'),
 }
-# kernels with a launch plan: name -> 'u' (u_plan) or 'de' (de_plan)
+# kernels with a launch plan: name -> 'u' (u_plan), 'y' (y_plan) or 'de'
+# (de_plan)
 PLANNED = {'snap_u_half': 'u', 'snap_u_full': 'u',
+           'snap_y_half': 'y', 'snap_y_half_bf16': 'y', 'snap_y_full': 'y',
            'snap_fused_de_half': 'de', 'snap_fused_de_full': 'de'}
+SOURCE_OF_PLAN = {'u': 'snap_u', 'y': 'snap_y', 'de': 'snap_fused_de'}
 SMS = 132                    # H100 SXM
 STACK_MAX = 1024             # bytes of stack frame a fused dE kernel may use
 DEVICE_REPS = 20             # K of device_ms
@@ -147,14 +153,23 @@ def plan_of(name, cfg, dtype, n, nnbor):
     import ctypes
 
     from repro_torch.kernels import _build, launch_plan
-    kind = PLANNED[name]
-    plan = (launch_plan.u_plan if kind == 'u' else launch_plan.de_plan)(
-        cfg.twojmax, dtype, n, nnbor)
-    source = 'snap_u' if kind == 'u' else 'snap_fused_de'
+    kind, full = PLANNED[name], name.endswith('_full')
+    if kind == 'y':
+        plan = launch_plan.y_plan(cfg.twojmax, dtype,
+                                  'full' if full else 'half', n)
+        # the Y query's variant: 0 half, 1 full, 2 half with bf16 operands
+        variant = 2 if name.endswith('_bf16') else int(full)
+    else:
+        plan = (launch_plan.u_plan if kind == 'u' else launch_plan.de_plan)(
+            cfg.twojmax, dtype, n, nnbor)
+        variant = int(full)
+    source = SOURCE_OF_PLAN[kind]
+    # the Y kernel is built for each lane count: the query names it
+    lanes = (plan.lanes,) if kind == 'y' else ()
     blocks = ctypes.c_int(0)
     _build.query(source, f'{source}_blocks_per_sm',
-                 (_build.I, _build.I, _build.I, _build.I, _build.P),
-                 int(dtype == torch.float64), int(name.endswith('_full')),
+                 (_build.I,) * (4 + len(lanes)) + (_build.P,),
+                 int(dtype == torch.float64), variant, *lanes,
                  plan.lanes * plan.threads, plan.smem, ctypes.byref(blocks))
     return plan, blocks.value
 
@@ -179,6 +194,14 @@ def ptxas_phase(built):
           f'ptxas: {len(de)} fused dE kernels, stack frames '
           f'{sorted(v.get("stack") for v in de.values())} B (< {STACK_MAX} B '
           'each: the level state lives in shared memory)')
+    from repro_torch.kernels.launch_plan import Y_LANES
+    y = {k: v for k, v in report.items() if 'snap_y_kernel' in k}
+    check(len(y) == 6 * len(Y_LANES),
+          f'ptxas: {len(y)} Y kernels (half, half bf16, full x f32, f64 x '
+          f'lanes {Y_LANES}), registers '
+          f'{sorted(set(v["registers"] for v in y.values()))}, stack frames '
+          f'{sorted(set(v.get("stack") for v in y.values()))} B, spill stores '
+          f'{sorted(set(v.get("spill_stores") for v in y.values()))} B')
     return report
 
 
@@ -211,9 +234,10 @@ def u_flops(twojmax, pairs, atoms=0, n_mirror=0):
     return per * pairs + 2 * n_mirror * atoms
 
 
-def y_flops(nnz, atoms, sigma=True):
-    # 6 complex product, 2 coef, 2 add, and 2 sign multiplies with sigma
-    return (12 if sigma else 10) * nnz * atoms
+def y_flops(nnz, atoms):
+    # 6 complex product, 2 coef, 2 add; sigma (+-1) is a sign-bit flip,
+    # no multiply
+    return 10 * nnz * atoms
 
 
 def de_flops(twojmax, pairs):
@@ -272,9 +296,11 @@ def kernel_phase(cfg, beta, nbr_idx, mask, disp, dtype, dev, names):
         snap_fused_de_half, snap_fused_de_half_plain)
     from repro_torch.kernels.snap_u import (snap_u_full, snap_u_full_plain,
                                             snap_u_half, snap_u_half_plain)
+    from repro_torch.kernels.launch_plan import y_plan
     from repro_torch.kernels.snap_y import (snap_y_full, snap_y_full_plain,
                                             snap_y_half, snap_y_half_plain,
-                                            y_coef, y_coef_half, y_tables)
+                                            y_coef, y_coef_half,
+                                            y_launch_tables)
     d = [torch.as_tensor(disp[..., c], device=dev, dtype=dtype)
          for c in range(3)]
     layout, ok, _ = ops._kernel_layout(
@@ -282,7 +308,7 @@ def kernel_phase(cfg, beta, nbr_idx, mask, disp, dtype, dev, names):
     geo = dict(twojmax=cfg.twojmax, rcut=cfg.rcut, rmin0=cfg.rmin0,
                rfac0=cfg.rfac0, switch_flag=cfg.switch_flag)
     tj, idx, pairs = cfg.twojmax, cfg.index, NNBOR * NATOMS
-    stages = {}   # layout: (U planes, coef, Y planes, Y tables)
+    stages = {}   # layout: (U planes, coef, Y planes, Y kernel tables)
     for lay, u_plain, y_plain, coef_of in (
             ('half', snap_u_half_plain, snap_y_half_plain, y_coef_half),
             ('full', snap_u_full_plain, snap_y_full_plain, y_coef)):
@@ -290,8 +316,10 @@ def kernel_phase(cfg, beta, nbr_idx, mask, disp, dtype, dev, names):
         ut = ((u_r + ops._self_planes(cfg, dtype, dev, lay)).contiguous(),
               u_i.contiguous())
         coef = coef_of(beta, tj).to(dtype)
+        plan = y_plan(tj, dtype, lay, layout.shape[2])
         stages[lay] = (ut, coef, y_plain(*ut, coef, twojmax=tj),
-                       y_tables(tj, dtype, dev, lay))
+                       y_launch_tables(tj, lay, dev, plan.groups,
+                                       plan.threads))
     dedr = snap_fused_de_half_plain(layout, *stages['half'][2], **geo)
     dmask = (dedr[:, :3, :NATOMS].permute(2, 0, 1) *
              ok[..., None].to(dtype)).contiguous()
@@ -324,7 +352,7 @@ def kernel_phase(cfg, beta, nbr_idx, mask, disp, dtype, dev, names):
             lambda: snap_y_full(*uf, cf, twojmax=tj),
             lambda: snap_y_full_plain(*uf, cf, twojmax=tj),
             2 * nbytes(*uf) + nbytes(cf, *tf),
-            y_flops(cf.numel(), NATOMS, sigma=False), TOL[dtype], None),
+            y_flops(cf.numel(), NATOMS), TOL[dtype], None),
         'snap_fused_de_half': (
             lambda: snap_fused_de_half(layout, *yh, **geo),
             lambda: snap_fused_de_half_plain(layout, *yh, **geo),
@@ -596,21 +624,18 @@ def md_phase(cfg, beta, pos, box, dev, path, steps, dtype):
 
 
 def big_phase(dev):
-    """2J = 14 in float32: each half and full kernel vs plain, then one
-    half-plane pipeline evaluation, kernel pipeline vs plain."""
+    """2J = 14 in float32: each half and full kernel vs plain, then the
+    half-plane pipeline vs its plain pipeline, and its time."""
     from repro_torch.kernels import ops
     cfg, beta, _, _, nbr_idx, mask, disp = setup(14, dev)
     beta = beta * 1e-2
     stats = kernel_phase(cfg, beta, nbr_idx, mask, disp, torch.float32, dev,
                          HALF + FULL)
-    args = (cfg, beta, 0.0, disp[..., 0], disp[..., 1], disp[..., 2],
-            nbr_idx, mask)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    args = (cfg, beta, 0.0, *device_inputs(disp, nbr_idx, mask, dev))
     e_k, _, f_k = ops.snap_force_pipeline(*args, dtype=torch.float32,
                                           device=dev)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    ms = time_ms(lambda: ops.snap_force_pipeline(
+        *args, dtype=torch.float32, device=dev), reps=5, warmup=1)
     e_p, _, f_p = ops.plain_force_pipeline(*args, dtype=torch.float32,
                                            device=dev)
     _, err = rel_err(f_k, f_p)
@@ -618,7 +643,7 @@ def big_phase(dev):
     check(finite and err <= TOL[torch.float32],
           f'2J=14 pipeline f32: max |F| rel err vs plain {err:.3e} (bar '
           f'1e-05), E {float(e_k):.6f} vs {float(e_p):.6f} eV, '
-          f'{ms:.2f} ms (first call)')
+          f'{ms:.3f} ms per evaluation (median of 5 after warm-up)')
     return stats
 
 

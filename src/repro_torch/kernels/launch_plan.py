@@ -1,23 +1,28 @@
-"""Launch plans of the U and fused dE kernels on the H100.
+"""Launch plans of the U, Y and fused dE kernels on the H100.
 
 A plan fixes a kernel's block, grid and dynamic shared memory from
-(twojmax, dtype, n, nnbor):
+(twojmax, dtype, n, nnbor) (Y: (twojmax, dtype, layout, n)):
 
-- ``lanes`` on ``threadIdx.x``: atoms of one tile (U) or pairs of one
-  neighbor slot (fused dE), consecutive atoms, so plane accesses coalesce;
+- ``lanes`` on ``threadIdx.x``: atoms of one tile (U), 16-byte vectors of
+  a tile's atoms (Y) or pairs of one neighbor slot (fused dE), consecutive
+  atoms, so plane accesses coalesce;
 - ``threads`` on ``threadIdx.y``: the threads that share the elements of a
   Wigner level; thread y takes a contiguous run of the level's left rows
-  (:func:`element_map`);
-- ``groups`` (U only): neighbor groups on ``blockIdx.y``, each summing its
-  share of the neighbors into its partial plane; a second kernel adds the
-  groups' partial planes in order.
+  (:func:`element_map`).  In Y they are row slots: slot y walks its own
+  run of the table's entries (:func:`y_segments`);
+- ``groups`` on ``blockIdx.y``: U's neighbor groups, each summing its
+  share of the neighbors into its partial plane (a second kernel adds the
+  groups' partial planes in order); Y's row groups, contiguous ranges of
+  destination rows with about equal numbers of table entries
+  (:func:`y_row_groups`).
 
-The shared-memory byte counts (:func:`u_smem`, :func:`de_smem`) repeat the
-CUDA sources' own arithmetic (``csrc/snap_u.cu: u_smem_elems``,
-``csrc/snap_fused_de.cu: de_smem_bytes``); each launcher checks the plan's
-numbers against it and refuses a mismatch.  A plan that does not fit the
-card (more than 232,448 B of shared memory or 1,024 threads a block)
-raises ``ValueError``.  Plain Python, importable without a card.
+The shared-memory byte counts (:func:`u_smem`, :func:`de_smem`,
+:func:`y_smem`) repeat the CUDA sources' own arithmetic (``csrc/snap_u.cu:
+u_smem_elems``, ``csrc/snap_fused_de.cu: de_smem_bytes``, ``csrc/snap_y.cu:
+y_smem_bytes``); each launcher checks the plan's numbers against it and
+refuses a mismatch.  A plan that does not fit the card (more than 232,448
+B of shared memory or 1,024 threads a block; Y: 512) raises
+``ValueError``.  Plain Python, importable without a card.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import math
 from dataclasses import dataclass
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from .common import MAX_TWOJMAX
@@ -50,14 +56,21 @@ ELEMS_PER_THREAD = 6
 THREADS_RANGE = (8, 32)
 BLOCK_THREADS = 512
 GROUP_NEIGHBORS = 9
+# Y: a thread owns one 16-byte vector of atoms (Y_VEC_BYTES), a block at
+# most Y_THREADS_MAX threads (the kernel's launch bound), lanes one of
+# Y_LANES (the kernel's instances); defaults: the widest lanes that fit,
+# Y_THREADS_MAX threads a block, whole waves of resident blocks
+Y_VEC_BYTES = 16
+Y_THREADS_MAX = 512
+Y_LANES = (32, 16, 8, 4)
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    kernel: str          # 'snap_u' or 'snap_fused_de'
-    lanes: int           # atoms (U) or pairs (fused dE) a block
-    threads: int         # threads sharing a level's elements
-    groups: int          # neighbor groups (U); 1 for fused dE
+    kernel: str          # 'snap_u', 'snap_y' or 'snap_fused_de'
+    lanes: int           # atoms (U), atom vectors (Y), pairs (dE) a block
+    threads: int         # threads sharing a level's elements; Y: row slots
+    groups: int          # neighbor groups (U), row groups (Y); 1 for dE
     block: tuple         # (lanes, threads, 1)
     grid: tuple          # (x, y, 1)
     smem: int            # dynamic shared memory a block, bytes
@@ -81,6 +94,11 @@ def half_level_max(twojmax: int) -> int:
 def half_rows(twojmax: int) -> int:
     """idxu_half_max: left-row elements of every level up to 2J."""
     return sum((j // 2 + 1) * (j + 1) for j in range(twojmax + 1))
+
+
+def full_rows(twojmax: int) -> int:
+    """idxu_max: every element of every level up to 2J."""
+    return sum((j + 1) ** 2 for j in range(twojmax + 1))
 
 
 def _itemsize(dtype) -> int:
@@ -217,3 +235,108 @@ def element_map(j: int, threads: int, y: int) -> list:
     run = -(-size // threads)
     lo = min(y * run, size)
     return [divmod(e, cols) for e in range(lo, min(lo + run, size))]
+
+
+def y_atoms(itemsize: int, lanes: int) -> int:
+    """Atoms of a Y tile: ``lanes`` threads of one 16-byte vector each."""
+    return lanes * (Y_VEC_BYTES // itemsize)
+
+
+def y_smem(rows: int, itemsize: int, lanes: int, slots: int) -> int:
+    """Bytes: the block's U column tile [rows][re, im][atoms] and the
+    slots' partial sums of a row split between slots [re, im][slots][atoms],
+    atoms = :func:`y_atoms` (``csrc/snap_y.cu: y_smem_bytes``)."""
+    return itemsize * 2 * y_atoms(itemsize, lanes) * (rows + slots)
+
+
+def y_rows(twojmax: int, layout: str) -> int:
+    if layout not in ('half', 'full'):
+        raise ValueError(f"layout must be 'half' or 'full', got {layout!r}")
+    return half_rows(twojmax) if layout == 'half' else full_rows(twojmax)
+
+
+@lru_cache(maxsize=None)
+def y_plan(twojmax: int, dtype, layout: str, n: int, lanes: int = None,
+           slots: int = None, groups: int = None) -> LaunchPlan:
+    """Plan of ``snap_y_{half,half_bf16,full}_*``: ``lanes`` threads on
+    an atom tile of :func:`y_atoms` atoms (a 16-byte vector each), ``slots``
+    (the plan's ``threads``) row slots, ``groups`` row groups.  Unset
+    numbers are chosen: the widest lanes of Y_LANES whose block of
+    Y_THREADS_MAX threads fits, and Y_THREADS_MAX threads a block (the
+    fastest in plan timings on an H100 at 2J = 8 and 14, PERF.md, but for
+    the bfloat16 option); and, by a rule, not by the timings, the fewest
+    whole waves of resident blocks that launch at least SMS blocks, so
+    that every SM gets one (``chip_smoke.py`` checks it at snap-2j8).  One
+    wave of fewer than SMS blocks timed faster in every case (PERF.md)."""
+    if not 0 <= twojmax <= MAX_TWOJMAX:
+        raise ValueError(f'twojmax={twojmax} outside 0..{MAX_TWOJMAX}')
+    size, rows = _itemsize(dtype), y_rows(twojmax, layout)
+    if lanes is None:
+        fits = [a for a in Y_LANES
+                if y_smem(rows, size, a, Y_THREADS_MAX // a) <= SMEM_MAX]
+        lanes = fits[0] if fits else Y_LANES[-1]
+    if lanes not in Y_LANES:
+        raise ValueError(f'snap_y: lanes {lanes} not one of {Y_LANES}')
+    slots = slots or Y_THREADS_MAX // lanes
+    smem = y_smem(rows, size, lanes, slots)
+    _check('snap_y', twojmax, lanes, slots, smem)
+    if lanes * slots > Y_THREADS_MAX:
+        raise ValueError(f'snap_y: {lanes} x {slots} threads a block exceed '
+                         f'{Y_THREADS_MAX}')
+    tiles = max(1, math.ceil(n / y_atoms(size, lanes)))
+    if groups is None:
+        wave, waves = SMS * resident_blocks(smem, lanes * slots), 1
+        groups = max(1, wave // tiles)
+        while tiles * groups < SMS and groups < rows:
+            waves += 1
+            groups = waves * wave // tiles
+        groups = min(groups, rows)
+    if not 1 <= groups <= min(rows, 65535):
+        raise ValueError(f'snap_y: groups {groups} outside 1..{rows}')
+    return LaunchPlan('snap_y', lanes, slots, groups, (lanes, slots, 1),
+                      (tiles, groups, 1), smem)
+
+
+def y_row_groups(rowptr, groups: int) -> np.ndarray:
+    """[groups + 1] row boundaries: group g owns the destination rows
+    [b[g], b[g + 1]), cut where the running count of table entries
+    (``rowptr``, CSR row pointers) first reaches g / groups of the total.
+    Contiguous, in order, every row exactly once; a group's count exceeds
+    the mean by less than the longest row."""
+    rowptr = np.asarray(rowptr, dtype=np.int64)
+    nrows, nnz = len(rowptr) - 1, int(rowptr[-1])
+    if not 1 <= groups <= max(nrows, 1):
+        raise ValueError(f'groups {groups} outside 1..{nrows}')
+    cut = np.searchsorted(rowptr[:-1], (np.arange(1, groups) * nnz)
+                          / groups, side='left')
+    # no empty group: each boundary at least one row past the previous
+    bounds = [0]
+    for c in cut:
+        bounds.append(min(max(int(c), bounds[-1] + 1),
+                          nrows - (groups - len(bounds))))
+    return np.asarray(bounds + [nrows], dtype=np.int32)
+
+
+def y_segments(rowptr, groups: int, slots: int) -> np.ndarray:
+    """[2, groups * slots + 1] int32: row 0 the first table entry of each
+    slot, row 1 the first row it owns (``csrc/snap_y.cu`` walks them).
+
+    Slot y of row group g (segment s = g * slots + y) sums the entries
+    [e[s], e[s + 1]), an equal share of the group's entries, and owns (and
+    writes) the rows [r[s], r[s + 1]): those whose first entry lies in its
+    share, and, for the group's last slot, the group's trailing empty rows.
+    The entries of a share before its first owned row belong to a row that
+    an earlier slot of the same group owns and finishes."""
+    rowptr = np.asarray(rowptr, dtype=np.int64)
+    bounds = y_row_groups(rowptr, groups)
+    e_lo, r_lo = [], []
+    for g in range(groups):
+        r0, r1 = int(bounds[g]), int(bounds[g + 1])
+        a, b = int(rowptr[r0]), int(rowptr[r1])
+        for y in range(slots):
+            e = a + (y * (b - a)) // slots
+            e_lo.append(e)
+            r_lo.append(r0 + int(np.searchsorted(rowptr[r0:r1], e, 'left')))
+    e_lo.append(int(rowptr[-1]))
+    r_lo.append(len(rowptr) - 1)
+    return np.asarray([e_lo, r_lo], dtype=np.int32)

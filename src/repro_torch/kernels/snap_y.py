@@ -20,10 +20,14 @@ Replaces two TPU kernels of ``repro/kernels/snap_y.py``:
   ``compute_ylist``.
 
 The TPU kernels fed these tables to one-hot matmuls in 512-entry tiles;
-here each table is sorted by destination into CSR row pointers once per 2J
-(:func:`y_half_csr`, :func:`y_full_csr`), which is the form the CUDA kernels
-(``csrc/snap_y.cu``, one thread per (row, atom)) walk without atomics.
-The ``*_plain`` functions are the same sums in plain PyTorch.
+here each table is sorted by destination into CSR row pointers, and inside
+a row by (src1, src2), once per 2J (:func:`y_half_csr`, :func:`y_full_csr`),
+with each entry's sources and signs packed in one int32
+(:func:`pack_entries`).  The CUDA kernels (``csrc/snap_y.cu``) stage each
+block's U column tile in shared memory and walk the table without atomics,
+with the plan of :func:`launch_plan.y_plan` and the row groups and slot
+shares of :func:`launch_plan.y_segments`.  The ``*_plain`` functions are
+the same sums in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -35,15 +39,20 @@ import numpy as np
 import torch
 
 from . import _build
+from .launch_plan import y_plan, y_segments
 from ..core.indices import build_index
 
 _CHUNK_BYTES = 256 * 1024 * 1024   # bound of one gathered [chunk, N] buffer
-_ARGS = (_build.P,) * 10 + (_build.I, _build.I)
+# planes, row pointers, packed table, coefficients, slot shares, outputs;
+# rows, n and the plan's lanes, slots, groups and shared bytes
+_ARGS = (_build.P,) * 8 + (_build.I,) * 6
 MXU_DTYPES = (None, torch.bfloat16)
+SRC_BITS = 15           # a packed source index: rows < 2**15
 
 
 class YCSR(NamedTuple):
-    """A COO table sorted by destination (stable), with CSR row pointers."""
+    """A COO table sorted by destination and, inside a row, by (src1,
+    src2) (stable), with CSR row pointers."""
     rowptr: np.ndarray    # [rows + 1] int32
     dest: np.ndarray      # [nnz] int32, non-decreasing
     src1: np.ndarray      # [nnz] int32
@@ -53,19 +62,44 @@ class YCSR(NamedTuple):
     cg: np.ndarray        # [nnz] CG product (half: mirror-folded)
     jjz: np.ndarray       # [nnz] idxz row (runtime beta gather)
     order: np.ndarray     # [nnz] position of each entry in the COO table
+    packed: np.ndarray    # [nnz] int32, :func:`pack_entries`
+
+
+def pack_entries(src1, src2, sig1=None, sig2=None) -> np.ndarray:
+    """One int32 an entry, as ``csrc/snap_y.cu`` reads it: bits 0-14 src1,
+    bit 15 set where s1 < 0, bits 16-30 src2, bit 31 set where s2 < 0 (no
+    signs: the full table)."""
+    src1, src2 = np.asarray(src1, np.int64), np.asarray(src2, np.int64)
+    if len(src1) and max(src1.max(), src2.max()) >= 1 << SRC_BITS:
+        raise ValueError(f'source rows must be < {1 << SRC_BITS}')
+    neg1 = 0 if sig1 is None else (np.asarray(sig1) < 0).astype(np.int64)
+    neg2 = 0 if sig2 is None else (np.asarray(sig2) < 0).astype(np.int64)
+    word = src1 | neg1 << 15 | src2 << 16 | neg2 << 31
+    return word.astype(np.uint32).view(np.int32)
+
+
+def unpack_entries(packed):
+    """(src1, src2, sig1, sig2) of :func:`pack_entries`' words; the signs
+    as +-1.0."""
+    word = np.asarray(packed).view(np.uint32).astype(np.int64)
+    mask = (1 << SRC_BITS) - 1
+    return (word & mask, word >> 16 & mask, 1.0 - 2.0 * (word >> 15 & 1),
+            1.0 - 2.0 * (word >> 31 & 1))
 
 
 def _csr(dest, nrows, src1, src2, sig1, sig2, cg, jjz) -> YCSR:
-    order = np.argsort(dest, kind='stable')
+    order = np.lexsort((src2, src1, dest))      # stable, dest major
     counts = np.bincount(dest, minlength=nrows)
+    sig1 = None if sig1 is None else sig1[order]
+    sig2 = None if sig2 is None else sig2[order]
     return YCSR(rowptr=np.concatenate([[0], np.cumsum(counts)]).astype(
                     np.int32),
                 dest=dest[order].astype(np.int32),
                 src1=src1[order].astype(np.int32),
                 src2=src2[order].astype(np.int32),
-                sig1=None if sig1 is None else sig1[order],
-                sig2=None if sig2 is None else sig2[order],
-                cg=cg[order], jjz=jjz[order].astype(np.int32), order=order)
+                sig1=sig1, sig2=sig2,
+                cg=cg[order], jjz=jjz[order].astype(np.int32), order=order,
+                packed=pack_entries(src1[order], src2[order], sig1, sig2))
 
 
 @lru_cache(maxsize=16)
@@ -89,18 +123,30 @@ def y_full_csr(twojmax: int) -> YCSR:
 _CSR = {'half': y_half_csr, 'full': y_full_csr}
 
 
+@lru_cache(maxsize=64)
+def y_launch_tables(twojmax: int, layout: str, device, groups: int,
+                    slots: int):
+    """The kernel's tables on ``device``: (rowptr, packed, segs) int32, segs
+    the slot shares of a plan's ``groups`` x ``slots``
+    (:func:`launch_plan.y_segments`); cached, so an evaluation uploads
+    nothing."""
+    t = _CSR[layout](twojmax)
+    return tuple(torch.as_tensor(a, dtype=torch.int32, device=device)
+                 for a in (t.rowptr, t.packed,
+                           y_segments(t.rowptr, groups, slots)))
+
+
 @lru_cache(maxsize=32)
 def y_tables(twojmax: int, dtype, device, layout: str = 'half'):
-    """A CSR table on ``device``: (rowptr, dest, src1, src2) int32 and
-    (sig1, sig2) in ``dtype``, None for the full table."""
+    """The plain version's table on ``device``: (dest, src1, src2) int32
+    and (sig1, sig2) in ``dtype``, None for the full table."""
     t = _CSR[layout](twojmax)
     i32 = dict(dtype=torch.int32, device=device)
     sig = [None if v is None else torch.as_tensor(v, dtype=dtype,
                                                   device=device)
            for v in (t.sig1, t.sig2)]
-    return (torch.as_tensor(t.rowptr, **i32), torch.as_tensor(t.dest, **i32),
-            torch.as_tensor(t.src1, **i32), torch.as_tensor(t.src2, **i32),
-            *sig)
+    return (torch.as_tensor(t.dest, **i32), torch.as_tensor(t.src1, **i32),
+            torch.as_tensor(t.src2, **i32), *sig)
 
 
 @lru_cache(maxsize=32)
@@ -182,7 +228,7 @@ def _y_plain(ut_r, ut_i, coef, twojmax, layout, bf16=False):
     """Gathers and ``index_add_`` over the CSR-ordered table, chunked so a
     gathered [chunk, N] buffer stays under 256 MB."""
     dev, dt = ut_r.device, ut_r.dtype
-    _, dest, src1, src2, sig1, sig2 = y_tables(twojmax, dt, dev, layout)
+    dest, src1, src2, sig1, sig2 = y_tables(twojmax, dt, dev, layout)
     y_r, y_i = torch.zeros_like(ut_r), torch.zeros_like(ut_i)
     if bf16:
         ut_r, ut_i, coef = round_bf16(ut_r), round_bf16(ut_i), \
@@ -228,12 +274,15 @@ def _y(name, layout, ut_r, ut_i, coef, twojmax, mxu_dtype=None):
         raise RuntimeError(f'{name}: no kernel for device {ut_r.device}')
     if mxu_dtype is not None:
         name += '_bf16'
-    rowptr, _, src1, src2, sig1, sig2 = y_tables(twojmax, ut_r.dtype,
-                                                 ut_r.device, layout)
+    rows, n = ut_r.shape
+    plan = y_plan(twojmax, ut_r.dtype, layout, n)
+    tables = y_launch_tables(twojmax, layout, ut_r.device, plan.groups,
+                             plan.threads)
     y_r, y_i = torch.empty_like(ut_r), torch.empty_like(ut_i)
     sym = name + ('_f32' if ut_r.dtype == torch.float32 else '_f64')
-    _build.launch('snap_y', sym, _ARGS, ut_r, ut_i, rowptr, src1, src2,
-                  sig1, sig2, coef, y_r, y_i, ut_r.shape[0], ut_r.shape[1])
+    _build.launch('snap_y', sym, _ARGS, ut_r, ut_i, tables[0], tables[1],
+                  coef, tables[2], y_r, y_i, rows, n, plan.lanes,
+                  plan.threads, plan.groups, plan.smem)
     _build.LAUNCHES[name] += 1
     return y_r, y_i
 

@@ -1,4 +1,5 @@
-"""Launch plans of the port's U and fused dE kernels (pure Python, no card).
+"""Launch plans of the port's U, Y and fused dE kernels (pure Python, no
+card).
 
 ``kernels/launch_plan.py`` chooses each kernel's block, grid and dynamic
 shared memory; the CUDA launchers refuse a plan whose numbers disagree with
@@ -8,12 +9,18 @@ float64: the default plan fits an H100 block (232,448 B of shared memory,
 every level exactly once, in contiguous runs along the rows (the kernels
 carry the previous column's element from one element to the next); at
 snap-2j8 (2048 padded atoms x 26 neighbors) each kernel launches at least
-one block per SM; and requests that do not fit raise.
+one block per SM; and requests that do not fit raise.  For Y, at 2J = 8
+and 14, half and full tables: the plan fits, launches at least 132 blocks
+at snap-2j8, and its row groups and slot shares cover every row and every
+table entry exactly once, in order, each group within 1.25 x the mean
+count of entries.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import launch_plan as lp
+from repro_torch.kernels.snap_y import y_full_csr, y_half_csr
 
 TWOJ = range(0, 15)
 DTYPES = {'f32': torch.float32, 'f64': torch.float64}
@@ -118,6 +125,95 @@ def test_unplanned_inputs_raise(kind):
         PLANS[kind](15, torch.float32, N, NNBOR)
     with pytest.raises(TypeError):
         PLANS[kind](8, torch.float16, N, NNBOR)
+
+
+Y_CASES = [(tj, dt, layout) for tj in (8, 14) for dt in DTYPES
+           for layout in ('half', 'full')]
+Y_CSR = {'half': y_half_csr, 'full': y_full_csr}
+GROUP_SPREAD = 1.25     # a row group's entries at most this x the mean
+
+
+def _y_ids(case):
+    tj, dt, layout = case
+    return f'y-2j{tj}-{dt}-{layout}'
+
+
+@pytest.mark.parametrize('case', Y_CASES, ids=_y_ids)
+def test_y_plan_fits_the_card(case):
+    tj, dt, layout = case
+    plan = lp.y_plan(tj, DTYPES[dt], layout, N)
+    rows = len(Y_CSR[layout](tj).rowptr) - 1
+    assert rows == lp.y_rows(tj, layout)
+    assert plan.smem == lp.y_smem(rows, DTYPES[dt].itemsize, plan.lanes,
+                                  plan.threads) <= lp.SMEM_MAX
+    assert plan.lanes in lp.Y_LANES
+    assert plan.lanes * plan.threads <= lp.Y_THREADS_MAX <= lp.THREADS_MAX
+    assert plan.block == (plan.lanes, plan.threads, 1)
+    atoms = lp.y_atoms(DTYPES[dt].itemsize, plan.lanes)
+    assert atoms == plan.lanes * 16 // DTYPES[dt].itemsize
+    assert plan.grid == (-(-N // atoms), plan.groups, 1)
+    assert 1 <= plan.groups <= rows
+    resident = lp.resident_blocks(plan.smem, plan.lanes * plan.threads)
+    assert resident >= 1
+    if tj == 8:
+        assert plan.blocks >= SMS, plan.describe()
+
+
+@pytest.mark.parametrize('case', Y_CASES, ids=_y_ids)
+def test_y_row_groups_and_slots_cover_the_table(case):
+    tj, dt, layout = case
+    plan = lp.y_plan(tj, DTYPES[dt], layout, N)
+    rowptr = Y_CSR[layout](tj).rowptr.astype(np.int64)
+    rows, nnz = len(rowptr) - 1, int(rowptr[-1])
+    bounds = lp.y_row_groups(rowptr, plan.groups)
+    # contiguous groups, in order, every row exactly once, none empty
+    assert bounds[0] == 0 and bounds[-1] == rows
+    assert (np.diff(bounds) >= 1).all()
+    counts = np.diff(rowptr[bounds])
+    assert counts.sum() == nnz
+    assert counts.max() <= GROUP_SPREAD * nnz / plan.groups, counts
+    assert counts.max() < nnz / plan.groups + np.diff(rowptr).max()
+    seg_e, seg_r = lp.y_segments(rowptr, plan.groups, plan.threads)
+    slots, total = plan.threads, plan.groups * plan.threads
+    assert len(seg_e) == len(seg_r) == total + 1
+    # the slots' shares tile the entries, and their owned rows the rows
+    assert seg_e[0] == 0 and seg_e[-1] == nnz and (np.diff(seg_e) >= 0).all()
+    assert seg_r[0] == 0 and seg_r[-1] == rows and (np.diff(seg_r) >= 0).all()
+    for g in range(plan.groups):
+        share = np.diff(seg_e[g * slots:(g + 1) * slots + 1])
+        assert seg_e[g * slots] == rowptr[bounds[g]]
+        assert seg_r[g * slots] == bounds[g]
+        assert share.max() - share.min() <= 1
+    # a slot owns the rows whose first entry lies in its share
+    for s in range(total):
+        owned = np.arange(seg_r[s], seg_r[s + 1])
+        starts = rowptr[owned]
+        assert ((starts >= seg_e[s]) & (starts <= seg_e[s + 1])).all()
+        assert (starts[starts == seg_e[s + 1]]
+                == rowptr[owned[starts == seg_e[s + 1]] + 1]).all()
+
+
+def test_y_snap_2j8_shared_memory_by_term():
+    """The Y plan's bytes at snap-2j8 f64, recounted term by term: 32 lanes
+    of 2 doubles, so the U column tile of 64 atoms over idxu_half_max = 155
+    rows (re and im), and 16 slots' partial sums of 64 atoms."""
+    plan = lp.y_plan(8, torch.float64, 'half', N)
+    assert (plan.lanes, plan.threads, plan.groups) == (32, 16, 8)
+    assert plan.smem == 8 * 2 * 64 * (155 + 16) == 175_104
+
+
+@pytest.mark.parametrize('request_', [
+    ('full', 14, dict(lanes=32)),           # 1,240 rows x 32 atoms f64
+    ('half', 14, dict(lanes=32)),           # 652 rows x 32 atoms f64
+    ('half', 8, dict(lanes=32, slots=32)),  # 1024 threads a block
+    ('half', 8, dict(lanes=2)),             # no kernel built for 2 lanes
+    ('half', 8, dict(groups=156)),          # more groups than rows
+    ('diag', 8, {}),                        # no such table
+], ids=['full-smem', 'half-smem', 'threads', 'lanes', 'groups', 'layout'])
+def test_y_over_budget_request_raises(request_):
+    layout, tj, kw = request_
+    with pytest.raises(ValueError):
+        lp.y_plan(tj, torch.float64, layout, N, **kw)
 
 
 def test_ptxas_report_reads_each_kernel():
