@@ -13,10 +13,20 @@ pipelines and the float64 adjoint, checks that two evaluations give equal
 bits and that an evaluation neither uploads nor synchronizes, and drives
 each path through ``repro_torch.md.integrate.run_nve(impl='kernel')`` with
 the launch counters set to 0 before and read after: 10 NVE steps on half
-planes (the main path), 10 on full planes, 4 with bfloat16 Y operands.  At
-2J = 14 (float32) it holds the half and full kernels against their plain
-versions and times the half-plane pipeline (median of 5 evaluations after
-warm-up).
+planes, 10 on full planes, 4 with bfloat16 Y operands.  The cell-list
+kernels (``csrc/cell_list.cu``: the neighbor build of the MD device loop)
+are held against their plain version bitwise in float64 and float32 at
+snap-2j8 (skin 0.4 A, 52-wide lists), against the host build's pair sets,
+in an overflow case and in a gated call with trigger 0.  Then this slice's
+main path, ``run_nve(loop='device', impl='kernel')`` (half planes, float64,
+skin 0.4 A, max_nbors 40, 300 K), runs 20 steps in chunks of 10 with the
+counters set to 0 before and read after, is timed again and profiled; one
+chunk runs under CUDA sync debug mode; a run with a 0.01 A skin (rebuilds
+firing) is held against ``loop='scan', rebuild_every=1``; 10 steps +
+``save_md_checkpoint`` + restore + 10 steps against 20 straight; and a
+``nan_force`` fault is rolled back.  At 2J = 14 (float32) it holds the
+half and full kernels against their plain versions and times the
+half-plane pipeline (median of 5 evaluations after warm-up).
 
 Bars: kernel vs plain, max |difference| / max |plain| <= 1e-10 in float64
 and <= 1e-5 in float32, <= 1e-3 for the bfloat16 option; pipelines vs the
@@ -24,7 +34,11 @@ float64 adjoint (assembled with ``index_add_``, not the assembly kernel)
 at the same bars, <= 1e-2 for bfloat16; the bfloat16 kernel at least twice
 its bar away from the unrounded plain Y; relative NVE drift <= 1e-5; the
 full-plane run's potential energy at step 10 within 1e-10 of the
-half-plane run's.  Times are medians of CUDA-event timings after
+half-plane run's; cell-list kernel vs plain bitwise; device-loop drift
+<= 1e-5, one chunk function for both chunks, the small-skin run >= 2
+rebuilds and its PE and Etot within 1e-9 relative of the scan loop's,
+split-run and rolled-back thermo rows bitwise equal to the straight run's.
+Times are medians of CUDA-event timings after
 warm-up (``ms``: one call between two events, wrapper host time
 included) and, for each kernel and library call, device time alone
 (``device_ms``: K back-to-back calls queued behind a spin kernel, between
@@ -60,6 +74,12 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-10}
 BF16_TOL, BF16_ADJ_TOL = 1e-3, 1e-2
 MD_STEPS, MD_REBUILD, MD_DRIFT_TOL, MD_PE_TOL = 10, 10, 1e-5, 1e-10
 BF16_MD_STEPS = 4
+# the device loop (the reference benchmark's settings, b_md_grind.py:68):
+# skin 0.4 A, max_nbors 40 at rcut (52-wide lists at rcut + skin)
+SKIN, DEVICE_NBORS, DEVICE_STEPS, DEVICE_LOG = 0.4, 40, 20, 10
+# a skin small enough that rebuilds fire in 10 steps at 300 K (the fastest
+# atom moves ~0.0023 A a step: half the skin in ~2 steps)
+SMALL_SKIN, SMALL_STEPS, THERMO_TOL = 0.01, 10, 1e-9
 # H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): HBM3 3.35 TB/s,
 # 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor cores
 HBM_BPS = 3.35e12
@@ -79,6 +99,9 @@ KERNELS = {   # name: (source, pl.pallas_call site it replaces)
     # jnp scatter in the reference, no Pallas kernel
     'assemble_forces': (CSRC + 'assemble_forces.cu',
                         'src/repro/core/snap.py:95'),
+    # the reference's jnp neighbor build (_bin_atoms, device_neighbors)
+    'cell_bin': (CSRC + 'cell_list.cu', 'src/repro/md/cell_list.py:133'),
+    'cell_build': (CSRC + 'cell_list.cu', 'src/repro/md/cell_list.py:159'),
 }
 HALF = ('snap_u_half', 'snap_y_half', 'snap_fused_de_half')
 FULL = ('snap_u_full', 'snap_y_full', 'snap_fused_de_full')
@@ -88,7 +111,10 @@ PATHS = {
     'full': FULL + ('assemble_forces',),
     'bf16': ('snap_u_half', 'snap_y_half_bf16', 'snap_fused_de_half',
              'assemble_forces'),
+    # run_nve(loop='device'): one gated rebuild (two launches) a step
+    'device': HALF + ('assemble_forces', 'cell_bin', 'cell_build'),
 }
+CELL = ('cell_bin', 'cell_build')
 # kernels with a launch plan: name -> 'u' (u_plan), 'y' (y_plan) or 'de'
 # (de_plan)
 PLANNED = {'snap_u_half': 'u', 'snap_u_full': 'u',
@@ -202,6 +228,12 @@ def ptxas_phase(built):
           f'{sorted(set(v["registers"] for v in y.values()))}, stack frames '
           f'{sorted(set(v.get("stack") for v in y.values()))} B, spill stores '
           f'{sorted(set(v.get("spill_stores") for v in y.values()))} B')
+    cell = {k: v for k, v in report.items()
+            if 'cell_bin_kernel' in k or 'cell_build_kernel' in k}
+    check(len(cell) == 4,
+          f'ptxas: {len(cell)} cell-list kernels (bin, build x f32, f64), '
+          + ', '.join(f'{k}: {v["registers"]} registers, {v.get("stack")} B '
+                      'stack' for k, v in sorted(cell.items())))
     return report
 
 
@@ -522,10 +554,39 @@ def pipeline_phase(cfg, beta, nbr_idx, mask, disp, dev):
               f'err {err:.3e} (bar {TOL[dtype]:.0e})')
 
 
+def profile_summary(prof, wall_us, reps, label, unit, top):
+    """Print the device operations, device time and busy share of a
+    profiled window of ``reps`` units, and the ``top`` operations by device
+    time; returns {name: (count, us)}, or None without device events."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print(f'     {label}: no device events recorded (device time not '
+              'measured)', flush=True)
+        return None
+    per = {}
+    for e in events:
+        n, us = per.get(e.name, (0, 0.0))
+        per[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy, end = 0.0, float('-inf')
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        lo, hi = e.time_range.start, e.time_range.end
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    total = sum(us for _, us in per.values())
+    print(f'     {label} (per {unit}): {len(events) / reps:.0f} device '
+          f'operations, {total / reps / 1e3:.3f} ms device time, wall '
+          f'{wall_us / reps / 1e3:.3f} ms, device busy {busy / wall_us:.3f} '
+          'of the profiled wall clock', flush=True)
+    for name, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f'       {us / reps / 1e3:8.4f} ms  x{n / reps:5.1f}  '
+              f'{name[:90]}', flush=True)
+    return per
+
+
 def profile_phase(cfg, beta, nbr_idx, mask, disp, dev, layout, reps=5):
     """Where the device time of one float64 force evaluation on ``layout``
     planes goes (torch.profiler over ``reps`` evaluations)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
@@ -540,28 +601,10 @@ def profile_phase(cfg, beta, nbr_idx, mask, disp, dev, layout, reps=5):
             ops.snap_force_pipeline(*args, **kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        print('     profile: no device events recorded (device time not '
-              'measured)', flush=True)
+    per = profile_summary(prof, wall_us, reps, f'profile {layout} f64',
+                          'evaluation', 8)
+    if per is None:
         return
-    per = {}
-    for e in events:
-        n, us = per.get(e.name, (0, 0.0))
-        per[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    busy, end = 0.0, float('-inf')
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        lo, hi = e.time_range.start, e.time_range.end
-        busy += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-    total = sum(us for _, us in per.values())
-    print(f'     profile {layout} f64 (per evaluation): '
-          f'{len(events) / reps:.0f} device operations, '
-          f'{total / reps / 1e3:.3f} ms device time, device busy '
-          f'{busy / wall_us:.3f} of the profiled wall clock', flush=True)
-    for name, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f'       {us / reps / 1e3:8.4f} ms  x{n / reps:4.0f}  '
-              f'{name[:90]}', flush=True)
     # an upload from pageable memory makes the host wait for the stream
     h2d = sum(n for name, (n, _) in per.items() if 'HtoD' in name) / reps
     check(h2d == 0, f'profile {layout}: {h2d:.0f} host-to-device copies per '
@@ -623,6 +666,297 @@ def md_phase(cfg, beta, pos, box, dev, path, steps, dtype):
     return counts, thermo
 
 
+def device_grid(pos, box, skin=SKIN):
+    """The device loop's grid at snap-2j8: run_nve's own sizing (cell_cap
+    from the initial lattice, max_nbors scaled to the rcut + skin shell)."""
+    from repro_torch.md import cell_list as cl
+    rb = RCUT + skin
+    k_build = int(np.ceil(DEVICE_NBORS * (rb / RCUT) ** 3 / 4.0)) * 4
+    return cl.make_grid(box, RCUT, skin, cl.auto_cell_cap(pos, box, rb),
+                        k_build)
+
+
+def neighbor_phase(pos, box, dev, dtype):
+    """The cell-list kernels at snap-2j8 in ``dtype``: device_neighbors'
+    kernels against the plain version (bitwise), pair sets against the
+    host build at rcut + skin, an overflow case, a gated call with trigger
+    0, and each kernel against its plain version on the same inputs, with
+    times and bounds."""
+    from repro_torch.kernels import neighbors as kn
+    from repro_torch.md import cell_list as cl
+    from repro_torch.md.neighbor import brute_neighbors
+    dt = str(dtype)[6:]
+    grid = device_grid(pos, box)
+    pos_t = torch.as_tensor(pos, dtype=dtype, device=dev)
+    box_t = torch.as_tensor(box, dtype=dtype, device=dev)
+    got = cl.device_neighbors(pos_t, box_t, grid)
+    ref = kn.neighbors_plain(pos_t, box_t, grid)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+          f'neighbors {dt}: kernel vs plain bitwise equal on nbr_idx, mask, '
+          f'shifts and flags (flags {got[3].tolist()}, nbins {grid.nbins}, '
+          f'cell_cap {grid.cell_cap}, K {grid.max_nbors})')
+    if dtype == torch.float64:
+        rb = grid.rcut_build
+        b_idx, b_mask, _, _ = brute_neighbors(pos, box, rb, grid.max_nbors)
+        ni, m = got[0].cpu().numpy(), got[1].cpu().numpy()
+        same = all(set(ni[i, m[i]]) == set(b_idx[i, b_mask[i]])
+                   for i in range(NATOMS))
+        check(same, f'neighbors {dt}: each atom\'s pair set equals the host '
+              f'brute_neighbors at rcut + skin = {rb} A '
+              f'({int(m.sum(1).min())}..{int(m.sum(1).max())} pairs)')
+    small = cl.make_grid(box, RCUT, SKIN, 8, 12)
+    over_k = cl.device_neighbors(pos_t, box_t, small)
+    over_p = kn.neighbors_plain(pos_t, box_t, small)
+    torch.cuda.synchronize()
+    fl = over_k[3].tolist()
+    check(all(torch.equal(a, b) for a, b in zip(over_k, over_p))
+          and fl[0] > small.max_nbors and fl[1] > small.cell_cap,
+          f'neighbors {dt} overflow (cell_cap 8, K 12): flags {fl} equal to '
+          f'the plain version\'s {over_p[3].tolist()}, lists equal')
+    bufs = dict(nbr_idx=got[0].clone(), shifts=got[2].clone(),
+                mask=got[1].clone(), pos_ref=pos_t.clone(),
+                flags=torch.zeros(6, dtype=torch.int32, device=dev))
+    before = {k: v.clone() for k, v in bufs.items()}
+    moved = (pos_t + 0.3).contiguous()
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    cl.rebuild_if(zero, moved, box_t, grid, **bufs)
+    torch.cuda.synchronize()
+    check(all(torch.equal(bufs[k], before[k]) for k in bufs),
+          f'neighbors {dt}: rebuild_if with trigger 0 leaves nbr_idx, '
+          'shifts, mask, pos_ref and flags bitwise untouched')
+    cl.rebuild_if(one, moved, box_t, grid, **bufs)
+    want = kn.neighbors_plain(moved, box_t, grid)
+    torch.cuda.synchronize()
+    check(torch.equal(bufs['nbr_idx'], want[0])
+          and torch.equal(bufs['mask'], want[1])
+          and torch.equal(bufs['shifts'], want[2])
+          and torch.equal(bufs['pos_ref'], moved)
+          and bufs['flags'][:2].tolist() == want[3].tolist(),
+          f'neighbors {dt}: rebuild_if with trigger 1 writes the plain '
+          'lists of the moved atoms, copies pos_ref and raises the counts')
+    # each kernel against its plain version on the same inputs
+    N, K = NATOMS, grid.max_nbors
+    flags_k, flags_p = (torch.zeros(2, dtype=torch.int32, device=dev)
+                        for _ in range(2))
+    table_k = kn.cell_bin(pos_t, box_t, grid, one, flags_k)
+    table_p = kn.cell_bin_plain(pos_t, box_t, grid, one, flags_p)
+
+    def outs():
+        return (torch.empty((N, K), dtype=torch.int32, device=dev),
+                torch.empty((N, K), dtype=torch.bool, device=dev),
+                torch.empty((N, K, 3), dtype=dtype, device=dev),
+                torch.zeros(2, dtype=torch.int32, device=dev),
+                torch.empty((N, 3), dtype=dtype, device=dev))
+    out_k, out_p = outs(), outs()
+    kn.cell_build(pos_t, box_t, grid, table_p, one, *out_k)
+    kn.cell_build_plain(pos_t, box_t, grid, table_p, one, *out_p)
+    torch.cuda.synchronize()
+    esz = pos_t.element_size()
+    # bytes: each input read once, each output written once; operations:
+    # the bin arithmetic once an atom (4 a coordinate), the pair test once
+    # a candidate of this lattice's cells (20: 3 sub, 3 div, 3 rint, 3 mul,
+    # 3 add, 5 for r2, 1 compare)
+    b = kn.atom_bins(torch.as_tensor(pos), torch.as_tensor(box), grid)
+    occ = np.zeros(grid.nbins, int)
+    np.add.at(occ, tuple(b.numpy().T), 1)      # atoms per cell
+    cand = int(sum((occ * np.roll(occ, [-x for x in o], axis=(0, 1, 2))).sum()
+                   for o in grid.stencil))
+    cases = {
+        'cell_bin': (
+            lambda: kn.cell_bin(pos_t, box_t, grid, one, flags_k),
+            lambda: kn.cell_bin_plain(pos_t, box_t, grid, one, flags_p),
+            (table_k, flags_k), (table_p, flags_p),
+            N * 3 * esz + 3 * esz + table_k.numel() * 4 + 8, 12 * N),
+        'cell_build': (
+            lambda: kn.cell_build(pos_t, box_t, grid, table_p, one, *out_k),
+            lambda: kn.cell_build_plain(pos_t, box_t, grid, table_p, one,
+                                        *out_p),
+            out_k, out_p,
+            2 * N * 3 * esz + 3 * esz + table_p.numel() * 4
+            + N * K * (4 + 1 + 3 * esz) + 8, 20 * cand),
+    }
+    stats = {}
+    for name, (kern, plain, got_t, ref_t, nb, flops) in cases.items():
+        same = all(torch.equal(a, b) for a, b in zip(got_t, ref_t))
+        abs_err = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(got_t, ref_t))
+        check(same, f'{name} {dt}: kernel vs plain bitwise equal on the same '
+              f'inputs (max abs err {abs_err:.3e})')
+        ms, plain_ms = time_ms(kern), time_ms(plain, reps=10)
+        dev_ms, hidden = device_ms(kern)
+        b_ms, b_by = bound(nb, flops, dtype)
+        print(f'     {name} {dt}: {ms:.4f} ms per call, {dev_ms:.4f} ms '
+              f'device{"" if hidden else " (host time leaked in)"} (plain '
+              f'{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by}; '
+              f'{flops / 1e6:.2f} MFLOP, {nb / 1e6:.3f} MB, {cand} '
+              'candidate pairs)', flush=True)
+        stats[name] = dict(max_abs_err=abs_err, max_rel_err=0.0 if same
+                           else float('inf'), ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           device_ms=dev_ms, device_ms_hidden=hidden,
+                           library_device_ms=None)
+    return stats
+
+
+def device_loop_phase(cfg, beta, pos, box, dev):
+    """run_nve(loop='device', impl='kernel') at snap-2j8, half f64 (this
+    slice's main path): 20 steps with the launch counters set to 0 before
+    and read after, then timed again; one chunk under CUDA sync debug mode
+    (no host synchronization); a small-skin run with rebuilds firing against
+    loop='scan', rebuild_every=1; a split run through a checkpoint; a
+    nan_force fault rolled back.  Returns (counts, thermo)."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.md.cell_list import device_neighbors
+    from repro_torch.md.fault_inject import Fault, FaultInjector
+    from repro_torch.md.integrate import (W_MASS, MDState, _full_flags,
+                                          _seed_force, init_velocities,
+                                          make_device_chunk_fn,
+                                          make_force_fn, run_nve)
+    from repro_torch.md.resilience import RecoveryPolicy
+    vel = init_velocities(NATOMS, 300.0)
+    f64 = torch.float64
+
+    def state():
+        return MDState(pos=pos.copy(), vel=vel.copy(), box=box)
+
+    kw = dict(impl='kernel', loop='device', skin=SKIN,
+              max_nbors=DEVICE_NBORS, log_every=DEVICE_LOG, device=dev,
+              dtype=f64)
+    cache = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, thermo = run_nve(cfg, beta, 0.0, state(), DEVICE_STEPS,
+                        fn_cache=cache, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for row in thermo:
+        print(f'     device step {row["step"]:>3}  T {row["T"]:9.3f} K  PE '
+              f'{row["pe"]:.10f}  Etot {row["etot"]:.10f} eV', flush=True)
+    e0, e1 = thermo[0]['etot'], thermo[-1]['etot']
+    drift = abs(e1 - e0) / max(abs(e0), 1.0)
+    check(np.isfinite(drift) and drift <= MD_DRIFT_TOL,
+          f'device loop: relative NVE drift {drift:.3e} over {DEVICE_STEPS} '
+          f'steps (bar {MD_DRIFT_TOL:.0e})')
+    traces = cache['device_trace_count']['traces']
+    check(traces == 1, f'device loop: {traces} chunk function(s) built for '
+          f'{DEVICE_STEPS // DEVICE_LOG} chunks (1 expected)')
+    n_eval = DEVICE_STEPS + 1   # one per step plus the seed
+    want = {k: (n_eval if k in PATHS['device'] else 0) for k in counts}
+    check(counts == want, f'device loop: launches {counts} == {n_eval} for '
+          'each kernel of the path (the cell kernels once a step, gated, '
+          'plus the seed build), 0 for the others')
+    t0 = time.perf_counter()
+    run_nve(cfg, beta, 0.0, state(), DEVICE_STEPS, fn_cache=cache, **kw)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    for tag, w in (('first run', wall), ('second run, chunk function '
+                                         'cached', wall2)):
+        ms_step = w * 1e3 / DEVICE_STEPS
+        print(f'     device loop ({tag}): {ms_step:.3f} ms per step, '
+              f'{ms_step * 1e3 / NATOMS:.4f} us per atom-step (wall clock '
+              f'of {DEVICE_STEPS} steps incl. the seed build and force, '
+              f'ends in a sync; {cache["device_rebuilds"]} rebuilds)',
+              flush=True)
+    device_loop_profile(cfg, beta, state, cache, kw)
+
+    # one chunk, called directly, under CUDA sync debug mode: the main
+    # grid (no rebuild fires) without guards, and a small-skin grid (the
+    # rebuilds fire) with the health guards armed
+    force_fn = make_force_fn(cfg, beta, 0.0, 'kernel', device=dev, dtype=f64)
+    pos_t = torch.tensor(pos, dtype=f64, device=dev)
+    vel_t = torch.tensor(vel, dtype=f64, device=dev)
+    box_t = torch.tensor(box, dtype=f64, device=dev)
+    for skin, policy in ((SKIN, None),
+                         (SMALL_SKIN, RecoveryPolicy(drift_tol=1.0))):
+        grid = device_grid(pos, box, skin)
+        ni, ms, sh, fl = device_neighbors(pos_t, box_t, grid)
+        _, f = _seed_force(force_fn, cfg, pos_t, ni, sh, ms)
+        chunk = make_device_chunk_fn(cfg, 0.0005, W_MASS, grid, force_fn,
+                                     DEVICE_LOG, policy=policy)
+        args = (pos_t, vel_t, f, box_t, ni, sh, ms, pos_t, _full_flags(fl),
+                0.0)
+        out = chunk(*args)   # warm-up
+        err = syncs(lambda: chunk(*args))
+        check(err is None, f'device loop: no host synchronization in a '
+              f'{DEVICE_LOG}-step chunk (skin {skin}, guards '
+              f'{"on" if policy else "off"}, {int(out[-1])} rebuilds in it; '
+              f'{err or "none raised"})')
+
+    # rebuilds firing: the device loop against host rebuilds every step
+    runs = {}
+    for name, extra in (('device', dict(skin=SMALL_SKIN)),
+                        ('scan', dict(loop='scan', rebuild_every=1))):
+        runs[name] = {}
+        _, th = run_nve(cfg, beta, 0.0, state(), SMALL_STEPS,
+                        fn_cache=runs[name], **dict(kw, log_every=2,
+                                                    **extra))
+        runs[name]['thermo'] = th
+    a, b = (np.array([[t['pe'], t['etot']] for t in runs[n]['thermo']])
+            for n in ('device', 'scan'))
+    err = float(np.max(np.abs(a - b) / np.abs(b)))
+    nreb = runs['device']['device_rebuilds']
+    check(nreb >= 2 and err <= THERMO_TOL,
+          f'device loop, skin {SMALL_SKIN} A: {nreb} rebuilds in '
+          f'{SMALL_STEPS} steps (>= 2), PE and Etot rows vs loop=\'scan\', '
+          f'rebuild_every=1: max rel diff {err:.3e} (bar {THERMO_TOL:.0e})')
+
+    # split run through a checkpoint, and a rolled-back fault, both against
+    # the straight run with the guards armed
+    pol = RecoveryPolicy()
+    _, straight = run_nve(cfg, beta, 0.0, state(), DEVICE_STEPS, policy=pol,
+                          **kw)
+    check(straight == thermo, 'device loop: the guarded run\'s thermo rows '
+          'equal the unguarded run\'s (bitwise)')
+    k = DEVICE_STEPS // 2
+    with tempfile.TemporaryDirectory() as d:
+        _, head = run_nve(cfg, beta, 0.0, state(), k, policy=pol,
+                          checkpoint_dir=d, checkpoint_every=k, **kw)
+        st, tail = run_nve(cfg, beta, 0.0, state(), k, policy=pol,
+                           checkpoint_dir=d, restore=True, **kw)
+    merged = {t['step']: t for t in head + tail}
+    check(st.step == DEVICE_STEPS
+          and all(merged.get(r['step']) == r for r in straight),
+          f'device loop: {k} steps + save_md_checkpoint + restore + {k} '
+          f'steps give the straight run\'s thermo rows bitwise '
+          f'({len(straight)} rows)')
+    inj = FaultInjector([Fault(step=k, kind='nan_force')])
+    fcache = {}
+    _, faulted = run_nve(cfg, beta, 0.0, state(), DEVICE_STEPS, policy=pol,
+                         fault_hook=inj, fn_cache=fcache, **kw)
+    kinds = [e.kind for e in fcache['recovery_events']]
+    check(bool(inj.fired) and 'rollback' in kinds and faulted == straight,
+          f'device loop: a nan_force fault at step {k} is rolled back '
+          f'({kinds}) and the run reproduces the clean run bitwise')
+    return counts, thermo
+
+
+def device_loop_profile(cfg, beta, state, cache, kw):
+    """Device time and busy share of the device loop (torch.profiler over
+    one more 20-step run with the chunk function cached)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.md.integrate import run_nve
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_nve(cfg, beta, 0.0, state(), DEVICE_STEPS, fn_cache=cache, **kw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per = profile_summary(prof, wall_us, DEVICE_STEPS, 'device loop profile',
+                          'step', 10) or {}
+    for name, (n, us) in sorted(per.items()):
+        if 'cell_b' in name:   # the gated neighbor build
+            print(f'       {us / n:8.2f} us a launch, {n} launches: '
+                  f'{name[:70]}', flush=True)
+
+
 def big_phase(dev):
     """2J = 14 in float32: each half and full kernel vs plain, then the
     half-plane pipeline vs its plain pipeline, and its time."""
@@ -671,12 +1005,10 @@ def main():
           f'{int(mask.sum(1).min())}..{int(mask.sum(1).max())}, '
           f'idxu_half_max {cfg.index.idxu_half_max}, idxu_max '
           f'{cfg.index.idxu_max}', flush=True)
-    stats = {torch.float64: kernel_phase(
-                 cfg, beta, nbr_idx, mask, disp, torch.float64, dev,
-                 list(KERNELS)),
-             torch.float32: kernel_phase(
-                 cfg, beta, nbr_idx, mask, disp, torch.float32, dev,
-                 list(KERNELS))}
+    snap = [k for k in KERNELS if k not in CELL]
+    stats = {dtype: kernel_phase(cfg, beta, nbr_idx, mask, disp, dtype, dev,
+                                 snap)
+             for dtype in (torch.float64, torch.float32)}
     pipeline_phase(cfg, beta, nbr_idx, mask, disp, dev)
     for layout in ('half', 'full'):
         profile_phase(cfg, beta, nbr_idx, mask, disp, dev, layout)
@@ -685,6 +1017,9 @@ def main():
                 ('half', MD_STEPS, torch.float64),
                 ('full', MD_STEPS, torch.float64),
                 ('bf16', BF16_MD_STEPS, torch.float32))}
+    for dtype in (torch.float64, torch.float32):
+        stats[dtype].update(neighbor_phase(pos, box, dev, dtype))
+    runs['device'] = device_loop_phase(cfg, beta, pos, box, dev)
     pe = {p: runs[p][1][-1]['pe'] for p in ('half', 'full')}
     d_pe = abs(pe['full'] - pe['half']) / abs(pe['half'])
     check(d_pe <= MD_PE_TOL, f'md: full-plane PE at step {MD_STEPS} '
@@ -702,7 +1037,8 @@ def main():
         # max_rel_err (and the bf16 kernel's rel_gap_unrounded)
         entry = dict(name=name, route='cuda', source=source,
                      replaces=replaces, launches=runs[path][0][name], **top,
-                     dtype=dt, path=path)
+                     dtype=dt, path=path,
+                     launches_device_loop=runs['device'][0][name])
         other, sfx = ((torch.float32, 'f32') if dt == 'float64'
                       else (torch.float64, 'f64'))
         entry.update({f'{k}_{sfx}': v

@@ -131,7 +131,10 @@ def assemble_forces(dedr, nbr_idx, mask, natoms):
         raise ValueError(f'dedr has {dedr.shape[0]} atom rows, expected '
                          f'{natoms}')
     d = (dedr * mask[..., None].to(dedr.dtype)).contiguous()
-    return assemble_forces_csr(d, *destination_csr(nbr_idx, natoms))
+    # masked slots name no atom: they sort past the last segment, so no
+    # thread walks them (padded lists name atom 0 in every empty slot)
+    dest = torch.where(mask, nbr_idx, natoms)
+    return assemble_forces_csr(d, *destination_csr(dest, natoms))
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,8 @@ def destination_csr(nbr_idx, natoms):
     """(order, rowptr): ``order`` [P] int64 lists the flat pair indices of
     ``nbr_idx`` [natoms, nnbor] sorted by destination atom (stable, so in
     pair order within one atom), ``rowptr`` [natoms + 1] int64 bounds each
-    atom's segment.  Entries must lie in 0..natoms-1."""
+    atom's segment.  Entries must lie in 0..natoms; those equal to natoms
+    (pairs to leave out) sort past ``rowptr[natoms]``, in no segment."""
     # int32 keys: half the radix passes of int64
     dest, order = torch.sort(nbr_idx.reshape(-1).to(torch.int32),
                              stable=True)
@@ -44,7 +45,8 @@ def assemble_forces_csr_plain(d, order, rowptr):
     counts = rowptr[1:] - rowptr[:-1]
     atom = torch.repeat_interleave(
         torch.arange(natoms, device=d.device), counts)
-    return d.sum(dim=1).index_add(0, atom, -d.reshape(-1, 3)[order])
+    return d.sum(dim=1).index_add(
+        0, atom, -d.reshape(-1, 3)[order[:atom.numel()]])
 
 
 def assemble_forces_csr(d, order, rowptr):

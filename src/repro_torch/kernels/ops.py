@@ -39,7 +39,8 @@ LAYOUTS = ('half', 'full')
 # every kernel entry, as counted in _build.LAUNCHES
 KERNELS = ('snap_u_half', 'snap_y_half', 'snap_y_half_bf16',
            'snap_fused_de_half', 'snap_u_full', 'snap_y_full',
-           'snap_fused_de_full', 'assemble_forces')
+           'snap_fused_de_full', 'assemble_forces', 'cell_bin',
+           'cell_build')
 # (U, Y, fused dE, Y coefficient) per layout: wrappers and plain versions
 _STAGES = {
     'half': (snap_u_half, snap_y_half, snap_fused_de_half, y_coef_half),

@@ -286,6 +286,34 @@ def test_assemble_forces_deterministic_by_destination(key):
                                              minlength=natoms))
 
 
+def test_destination_csr_leaves_masked_pairs_out():
+    """Padded lists name atom 0 in every empty slot; the assembly gives
+    those slots the sentinel natoms, so they fall in no atom's incoming
+    segment (one thread walked them all before) and forces still match the
+    reference's scatter."""
+    from repro_torch.kernels.assemble import destination_csr
+    natoms, nnbor = 9, 6
+    rng = np.random.default_rng(8)
+    mask = rng.uniform(size=(natoms, nnbor)) > 0.4
+    nbr_idx = np.where(mask, rng.integers(0, natoms, (natoms, nnbor)), 0)
+    dest = torch.where(torch.as_tensor(mask), torch.as_tensor(nbr_idx),
+                       natoms)
+    order, rowptr = destination_csr(dest, natoms)
+    np.testing.assert_array_equal(
+        np.diff(rowptr.numpy()), np.bincount(nbr_idx[mask], minlength=natoms))
+    assert int(rowptr[-1]) == mask.sum()
+    np.testing.assert_array_equal(
+        order.numpy()[:mask.sum()],
+        np.flatnonzero(mask)[np.argsort(nbr_idx[mask], kind='stable')])
+    dedr = rng.normal(size=(natoms, nnbor, 3))
+    want = rsnap.assemble_forces(jnp.asarray(dedr), jnp.asarray(nbr_idx),
+                                 jnp.asarray(mask), natoms)
+    got = tsnap.assemble_forces(torch.as_tensor(dedr),
+                                torch.as_tensor(nbr_idx),
+                                torch.as_tensor(mask), natoms)
+    _close(got.numpy(), want, 1e-14)
+
+
 def test_assemble_forces_newton_third_law():
     """Assembly sums to zero net force, as the reference's does."""
     rng = np.random.default_rng(4)

@@ -66,6 +66,18 @@ def test_default_device_without_card_raises(no_card):
         tmd.run_nve(_args()[0], _args()[1], 0.0, state, 1, impl='kernel')
 
 
+def test_md_device_engine_without_card_raises(no_card):
+    """The device loop and the host-facing neighbor build default to the
+    card too."""
+    from repro_torch.md import cell_list as tcl
+    pos = np.random.default_rng(0).uniform(0, 10, (8, 3))
+    with pytest.raises(RuntimeError, match='cuda'):
+        tcl.cell_neighbors_device(pos, np.full(3, 10.0), 3.0)
+    state = tmd.MDState(pos=pos, vel=np.zeros((8, 3)), box=np.full(3, 10.0))
+    with pytest.raises(RuntimeError, match='cuda'):
+        tmd.run_nve(_args()[0], _args()[1], 0.0, state, 1, loop='device')
+
+
 def test_explicit_cpu_runs_plain_versions(no_card):
     e, _, f = ops.snap_force_pipeline(*_args(), device='cpu')
     assert torch.isfinite(e) and f.device.type == 'cpu'

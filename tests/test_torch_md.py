@@ -95,7 +95,7 @@ def test_run_nve_rejects_unported_loops():
     cfg = tsnap.SnapConfig(twojmax=2, rcut=4.7)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tmd.run_nve(cfg, beta[:cfg.ncoeff], 0.0, state, 1, loop='device',
-                    device='cpu')
+                    shards=2, device='cpu')
     with pytest.raises(ValueError):
         tmd.run_nve(cfg, beta[:cfg.ncoeff], 0.0, state, 1, loop='nope',
                     device='cpu')
