@@ -24,9 +24,31 @@ counters set to 0 before and read after, is timed again and profiled; one
 chunk runs under CUDA sync debug mode; a run with a 0.01 A skin (rebuilds
 firing) is held against ``loop='scan', rebuild_every=1``; 10 steps +
 ``save_md_checkpoint`` + restore + 10 steps against 20 straight; and a
-``nan_force`` fault is rolled back.  At 2J = 14 (float32) it holds the
-half and full kernels against their plain versions and times the
-half-plane pipeline (median of 5 evaluations after warm-up).
+``nan_force`` fault is rolled back.  The serving phase drives
+``repro_torch.launch.serve_forces.ForceServer`` (snap-2j8's model class,
+buckets n_pad 128 and 2048, lists 32 and 64 wide, batch 4, each lane its
+own beta): the batched brute build against the host build's pair sets and
+its CPU run's flags; the batched kernel entry (``make_batched_force_fn``)
+against the same function on the plain stages and the plain assembly in
+float64 and float32, and the assembly kernel against its plain version on
+the batched path's own inputs (8192 atoms, lane-offset lists); the
+Y kernel with a coefficient row a lane at 4 x 2048 against its plain
+version (equal rows give the one-row bits); a solo 2000-atom request
+against ``snap_force_pipeline`` and the float64 adjoint, and the float32
+adjoint against the float64 one; a batch of a healthy, a NaN-poisoned, an
+overflowing and a healthy request (typed failures, the peers bitwise equal
+to solo evaluations), one launch of each of U, Y, fused dE and the
+assembly a batched step, one build a bucket, no host synchronization in a
+batched evaluation, no degradation on clean runs; quarantine after two
+injected kernel faults; and a timed open-loop run of 40 requests (sizes
+128 and 2000 from seed 0, exponential arrivals at 200 a second, 15 %
+poisoned) with the launch counters set to 0 before and read after, the
+same at 400 requests for the tail, 400 clean requests offered at 5000 a
+second for the rate the service sustains, ms per batched step a bucket and
+a profile of one n2048 batched evaluation.  At
+2J = 14 (float32) it holds the half and full kernels against their plain
+versions and times the half-plane pipeline (median of 5 evaluations after
+warm-up).
 
 Bars: kernel vs plain, max |difference| / max |plain| <= 1e-10 in float64
 and <= 1e-5 in float32, <= 1e-3 for the bfloat16 option; pipelines vs the
@@ -37,7 +59,9 @@ full-plane run's potential energy at step 10 within 1e-10 of the
 half-plane run's; cell-list kernel vs plain bitwise; device-loop drift
 <= 1e-5, one chunk function for both chunks, the small-skin run >= 2
 rebuilds and its PE and Etot within 1e-9 relative of the scan loop's,
-split-run and rolled-back thermo rows bitwise equal to the straight run's.
+split-run and rolled-back thermo rows bitwise equal to the straight run's;
+serving: the bars above by dtype, float32 (1e-5) for the solo request,
+the float32 adjoint and quarantine, batch peers vs solo bitwise.
 Times are medians of CUDA-event timings after
 warm-up (``ms``: one call between two events, wrapper host time
 included) and, for each kernel and library call, device time alone
@@ -113,6 +137,8 @@ PATHS = {
              'assemble_forces'),
     # run_nve(loop='device'): one gated rebuild (two launches) a step
     'device': HALF + ('assemble_forces', 'cell_bin', 'cell_build'),
+    # ForceServer: one launch of each a batched step, whatever the batch
+    'serve': HALF + ('assemble_forces',),
 }
 CELL = ('cell_bin', 'cell_build')
 # kernels with a launch plan: name -> 'u' (u_plan), 'y' (y_plan) or 'de'
@@ -121,6 +147,16 @@ PLANNED = {'snap_u_half': 'u', 'snap_u_full': 'u',
            'snap_y_half': 'y', 'snap_y_half_bf16': 'y', 'snap_y_full': 'y',
            'snap_fused_de_half': 'de', 'snap_fused_de_full': 'de'}
 SOURCE_OF_PLAN = {'u': 'snap_u', 'y': 'snap_y', 'de': 'snap_fused_de'}
+# the service: snap-2j8's model class, buckets n_pad 128 and 2048, lists 32
+# and 64 wide, batch 4; each lane of a batch its own beta (seeds x 5e-3);
+# overflow: the same lattice at a = 2.7 A (52-58 neighbors within 4.7 A)
+SERVE_NPADS, SERVE_LADDER, SERVE_BATCH = (128, 2048), (32, 64), 4
+SERVE_SEEDS, SERVE_DENSE_A = (1, 3, 5, 7), 2.7
+# the open-loop run: requests, sizes, arrival rate (1/s), poisoned share
+OPEN_N, OPEN_SIZES, OPEN_RATE, OPEN_BAD = 40, (128, 2000), 200.0, 0.15
+# the tail at the same rate, ~340 latencies (p99 is not the largest one);
+# capacity: the same number of clean requests offered above it
+TAIL_N, SATURATE_RATE = 400, 5000.0
 SMS = 132                    # H100 SXM
 STACK_MAX = 1024             # bytes of stack frame a fused dE kernel may use
 DEVICE_REPS = 20             # K of device_ms
@@ -957,6 +993,455 @@ def device_loop_profile(cfg, beta, state, cache, kw):
                   f'{name[:70]}', flush=True)
 
 
+def serve_request(rid, natoms, seed, a=3.1652, poison=False, beta_seed=None):
+    """A snap-2j8 request: ``natoms`` bcc W atoms at lattice constant
+    ``a`` perturbed 0.02 A (``seed``), beta from ``beta_seed`` x 5e-3."""
+    from repro_torch.core.snap import SnapConfig
+    from repro_torch.launch.request_queue import ForceRequest
+    from repro_torch.md.fault_inject import poison_request_positions
+    from repro_torch.md.lattice import paper_box, perturb
+    pos, box = paper_box(natoms, a=a)
+    pos = perturb(pos, 0.02, seed=seed)
+    if poison:
+        pos = poison_request_positions(pos)
+    rng = np.random.default_rng(seed if beta_seed is None else beta_seed)
+    beta = rng.normal(size=SnapConfig(twojmax=8).ncoeff) * 5e-3
+    return ForceRequest(rid, pos=pos, box=np.asarray(box, float), beta=beta,
+                        twojmax=8, rcut=RCUT)
+
+
+def serve_fn(bucket, dev, dtype=torch.float32):
+    """The batched kernel entry of ``bucket``, as the server builds it."""
+    from repro_torch.core.snap import SnapConfig
+    from repro_torch.kernels import ops
+    cfg = SnapConfig(twojmax=8, rcut=RCUT, dtype=dtype)
+    return ops.make_batched_force_fn(cfg, bucket.n_pad, bucket.max_nbors,
+                                     dtype=dtype, device=dev)
+
+
+def serve_batches(table, dev):
+    """{n_pad: (bucket, packed batch on the card)}: four requests a bucket
+    (128 and 2000 atoms), each lane with its own lattice seed and beta."""
+    from repro_torch.launch.serve_forces import pack_batch
+    out = {}
+    for n_pad, natoms in zip(SERVE_NPADS, OPEN_SIZES):
+        reqs = [serve_request(f'n{natoms}-{s}', natoms, s)
+                for s in SERVE_SEEDS]
+        bucket = table.select(reqs[0])
+        out[n_pad] = (bucket, pack_batch(bucket, reqs, dev))
+    return out
+
+
+def serve_neighbor_checks(batches):
+    """First contact of the batched brute build on the card: pair sets
+    against the host build, flags (and lists) against the CPU run."""
+    from repro_torch.md import cell_list as cl
+    from repro_torch.md.neighbor import brute_neighbors
+    for n_pad, (bucket, a) in batches.items():
+        args = (a['pos'], a['box'], RCUT, bucket.max_nbors, a['n_valid'])
+        got = cl.brute_neighbors_batched(*args)
+        cpu = cl.brute_neighbors_batched(
+            *(t.cpu() if isinstance(t, torch.Tensor) else t for t in args))
+        got = [t.cpu() for t in got]
+        same = all(torch.equal(g, c) for g, c in zip(got, cpu))
+        ni, m = got[0].numpy(), got[1].numpy()
+        pairs = True
+        for b in range(SERVE_BATCH):
+            n = int(a['n_valid'][b])
+            h_idx, h_mask, _, _ = brute_neighbors(
+                a['pos'][b, :n].cpu().numpy(), a['box'][b].cpu().numpy(),
+                RCUT, bucket.max_nbors)
+            pairs &= all(set(ni[b, i, m[b, i]]) == set(h_idx[i, h_mask[i]])
+                         for i in range(n))
+        check(pairs and torch.equal(got[3], cpu[3]),
+              f'serve brute build n{n_pad} on the card: pair sets equal to '
+              f'the host brute_neighbors in all {SERVE_BATCH} lanes, flags '
+              f'{got[3].tolist()} equal to the CPU run\'s (lists bitwise '
+              f'equal to the CPU run: {same})')
+
+
+def serve_kernel_checks(batches, dev):
+    """The batched kernel entry against the same batched function built
+    from the plain stages and the plain assembly (f64 and f32, both
+    buckets); the assembly kernel against its plain version on the dE/dr,
+    lane-offset lists and sentinels the batched path gave it; the per-lane
+    Y kernel against its plain version at 4 x 2048 with times and bound;
+    one row a lane equal to one row (bitwise)."""
+    from repro_torch.core import snap as core_snap
+    from repro_torch.core.snap import SnapConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.assemble import assemble_forces_csr_plain
+    from repro_torch.kernels.snap_y import (snap_y_half, snap_y_half_plain,
+                                            y_coef_half, y_launch_tables)
+    from repro_torch.kernels.launch_plan import y_plan
+    from repro_torch.kernels.snap_u import snap_u_half_plain
+    for n_pad, (bucket, a) in batches.items():
+        for dtype in (torch.float64, torch.float32):
+            fn = serve_fn(bucket, dev, dtype)
+            seen = []
+
+            def record(*args):
+                seen.append(args)
+                return core_snap.assemble_forces(*args)
+            with mock.patch.object(ops, 'assemble_forces', record):
+                e_k, f_k, fl_k = fn(**a)
+            ops.reset_launch_counts()
+            with mock.patch.object(ops, '_STAGES', ops._PLAIN_STAGES), \
+                    mock.patch.object(core_snap, 'assemble_forces_csr',
+                                      assemble_forces_csr_plain):
+                e_p, f_p, fl_p = fn(**a)
+            plain_launches = sum(ops.launch_counts().values())
+            _, err_f = rel_err(f_k, f_p)
+            _, err_e = rel_err(e_k, e_p)
+            bar = TOL[dtype]
+            check(err_f <= bar and err_e <= bar and torch.equal(fl_k, fl_p)
+                  and plain_launches == 0,
+                  f'serve batched kernel entry n{n_pad} {str(dtype)[6:]} vs '
+                  f'the same function on the plain stages and assembly '
+                  f'({plain_launches} kernel launches): forces {err_f:.3e}'
+                  f', energies {err_e:.3e} (bar {bar:.0e}), flags equal; '
+                  f'E {[round(float(x), 6) for x in e_k]} eV')
+            # the assembly alone on the inputs the batched path gave it
+            dedr, nbr, ok, natoms = seen[0]
+            got = core_snap.assemble_forces(*seen[0])
+            with mock.patch.object(core_snap, 'assemble_forces_csr',
+                                   assemble_forces_csr_plain):
+                ref = core_snap.assemble_forces(*seen[0])
+            _, err_a = rel_err(got, ref)
+            lanes_ok = bool(((nbr // (natoms // SERVE_BATCH))
+                             == (torch.arange(natoms, device=dev)
+                                 // (natoms // SERVE_BATCH))[:, None])
+                            [ok].all())
+            check(len(seen) == 1 and err_a <= bar and lanes_ok,
+                  f'serve assembly kernel n{n_pad} {str(dtype)[6:]} on the '
+                  f'batched path\'s inputs (dE/dr {list(dedr.shape)}, '
+                  f'{natoms} atoms, {int(ok.sum())} live slots, each in its '
+                  f'own lane: {lanes_ok}) vs its plain version: {err_a:.3e} '
+                  f'(bar {bar:.0e})')
+    # Y with a coefficient row a lane at the n2048 batch's width, on
+    # snap-2j8 U planes (one 2000-atom configuration in each lane)
+    cfg, beta, _, _, _, mask, disp = setup(8, dev)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        d = [torch.as_tensor(disp[..., c], device=dev, dtype=dtype)
+             for c in range(3)]
+        planes, _, _ = ops._kernel_layout(
+            cfg, *d, torch.as_tensor(mask, device=dev), dtype)
+        u_r, u_i = snap_u_half_plain(planes, twojmax=8, rcut=RCUT)
+        u_r = u_r + ops._self_planes(cfg, dtype, dev, 'half')
+        lane_atoms = planes.shape[2]
+        ut = tuple(torch.cat([t] * SERVE_BATCH, dim=1).contiguous()
+                   for t in (u_r, u_i))
+        betas = torch.stack([beta * (1 + 0.1 * k)
+                             for k in range(SERVE_BATCH)])
+        rows = y_coef_half(betas, 8).to(dtype)
+        kw = dict(twojmax=8, lane_atoms=lane_atoms)
+        got = snap_y_half(*ut, rows, **kw)
+        ref = snap_y_half_plain(*ut, rows, **kw)
+        torch.cuda.synchronize()
+        abs_err, err = rel_err(got, ref)
+        one = snap_y_half(*ut, rows[0], twojmax=8)
+        same = snap_y_half(*ut, rows[0].expand(SERVE_BATCH, -1).contiguous(),
+                           **kw)
+        bitwise = all(torch.equal(x, y) for x, y in zip(one, same))
+        check(err <= TOL[dtype] and bitwise,
+              f'snap_y_half {str(dtype)[6:]}, a coefficient row a lane '
+              f'({SERVE_BATCH} x {lane_atoms} atoms): max rel err vs plain '
+              f'{err:.3e} (bar {TOL[dtype]:.0e}); equal rows a lane give the '
+              f'one-row bits: {bitwise}')
+        n = SERVE_BATCH * lane_atoms
+        plan = y_plan(8, dtype, 'half', n)
+        tables = y_launch_tables(8, 'half', dev, plan.groups, plan.threads)
+        ms = time_ms(lambda: snap_y_half(*ut, rows, **kw))
+        plain_ms = time_ms(lambda: snap_y_half_plain(*ut, rows, **kw),
+                           reps=5)
+        dev_ms, hidden = device_ms(lambda: snap_y_half(*ut, rows, **kw))
+        b_ms, b_by = bound(2 * nbytes(*ut) + nbytes(rows, *tables),
+                           y_flops(rows.shape[1], n), dtype)
+        print(f'     snap_y_half {str(dtype)[6:]} rows a lane: {ms:.4f} ms '
+              f'per call, {dev_ms:.4f} ms device'
+              f'{"" if hidden else " (host time leaked in)"} (plain '
+              f'{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; width '
+              f'{n}; plan {plan.describe()})', flush=True)
+        out[dtype] = dict(max_abs_err=abs_err, max_rel_err=err, ms=ms,
+                          plain_ms=plain_ms, device_ms=dev_ms,
+                          device_ms_hidden=hidden, bound_ms=b_ms,
+                          bound_by=b_by, width=n)
+    return out
+
+
+def serve_service_checks(table, dev):
+    """The service on the card (f32, the server's default): a solo
+    request against snap_force_pipeline and the f64 adjoint; the f32
+    adjoint against the f64 one; a batch of a healthy, a NaN-poisoned, an
+    overflowing and a second healthy request, the peers bitwise against
+    solo evaluations; launches and builds a step; no host sync in a
+    batched evaluation; the clean-run conditions; quarantine."""
+    from dataclasses import replace
+
+    from repro_torch.core.snap import SnapConfig, energy_forces_adjoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch.request_queue import RequestFailedError
+    from repro_torch.launch.serve_forces import (ForceResult, ForceServer,
+                                                 pack_batch)
+    from repro_torch.md import cell_list as cl
+    from repro_torch.md.fault_inject import ServeFault, ServeFaultInjector
+    f32, f64 = torch.float32, torch.float64
+    srv = ForceServer(table, device=dev)
+
+    # a solo 2000-atom request against the one-configuration pipeline on
+    # the same lists, and against the f64 adjoint; the f32 adjoint (the
+    # quarantine path of an f32 server) against the f64 one
+    req = serve_request('solo', NATOMS, 21)
+    res = srv.evaluate(req)
+    pos = torch.as_tensor(req.pos, device=dev)
+    box = torch.as_tensor(req.box, device=dev)
+    ni, m, d, _ = cl.brute_neighbors_device(pos, box, RCUT,
+                                            SERVE_LADDER[0])
+    lists = (d[..., 0], d[..., 1], d[..., 2], ni, m)
+    cfg = SnapConfig(twojmax=8, rcut=RCUT)
+    beta = torch.as_tensor(req.beta, device=dev)
+    e_p, _, f_p = ops.snap_force_pipeline(cfg, beta, 0.0, *lists,
+                                          dtype=f32, device=dev)
+    e_64, _, f_64 = energy_forces_adjoint(cfg, beta, 0.0, *lists,
+                                          device=dev)
+    e_32, _, f_32 = energy_forces_adjoint(replace(cfg, dtype=f32), beta,
+                                          0.0, *lists, device=dev)
+    ok = isinstance(res, ForceResult) and res.impl == 'kernel'
+    check(ok, f'serve: solo {NATOMS}-atom request served on the kernel '
+          f'path ({res!r:.120})')
+    if ok:
+        got = (res.energy, torch.as_tensor(res.forces, device=dev))
+        for what, (e_g, f_g), (e_r, f_r) in (
+                ('solo request vs snap_force_pipeline f32', got, (e_p, f_p)),
+                ('solo request vs the f64 adjoint', got, (e_64, f_64)),
+                ('the f32 adjoint (allow_tf32 '
+                 f'{torch.backends.cuda.matmul.allow_tf32}) vs the f64 '
+                 'adjoint', (float(e_32), f_32), (e_64, f_64))):
+            _, err_f = rel_err(f_g.double(), f_r.double())
+            err_e = abs(e_g - float(e_r)) / abs(float(e_r))
+            check(err_f <= TOL[f32] and err_e <= TOL[f32],
+                  f'serve: {what}, {NATOMS} atoms: forces {err_f:.3e}, '
+                  f'energy {err_e:.3e} (bar {TOL[f32]:.0e})')
+
+    # one batch: healthy, NaN-poisoned, overflowing, healthy (n2048)
+    reqs = [serve_request('h1', NATOMS, 31),
+            serve_request('nan', NATOMS, 32, poison=True),
+            serve_request('ovf', NATOMS, 33, a=SERVE_DENSE_A),
+            serve_request('h2', NATOMS, 34)]
+    for r in reqs:
+        srv.submit(r, now=1.0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    done, _ = srv.step(1.0)
+    counts = ops.launch_counts()
+    want = {k: int(k in PATHS['serve']) for k in counts}
+    check(counts == want, f'serve: one batched step of {len(reqs)} requests '
+          f'launched {counts} (1 of each kernel of the path, 0 others)')
+    err_nan, err_ovf = srv.result('nan'), srv.result('ovf')
+    check(len(done) == 4 and isinstance(err_nan, RequestFailedError)
+          and 'nan_state' in err_nan.diagnostics['issues'],
+          f'serve: the NaN-poisoned request fails typed: {err_nan!r:.160}')
+    check(isinstance(err_ovf, RequestFailedError)
+          and err_ovf.diagnostics.get('observed', 0) > SERVE_LADDER[0]
+          and err_ovf.diagnostics.get('suggested_max_nbors', 0)
+          > err_ovf.diagnostics.get('observed', 0),
+          f'serve: the overflowing request fails typed: {err_ovf!r:.200}')
+    for r in (reqs[0], reqs[3]):
+        batched = srv.result(r.req_id)
+        ops.reset_launch_counts()
+        solo = srv.evaluate(replace(r, req_id=r.req_id + '-solo'), now=2.0)
+        counts = ops.launch_counts()
+        check(isinstance(batched, ForceResult) and isinstance(solo,
+                                                              ForceResult)
+              and np.array_equal(batched.forces, solo.forces)
+              and batched.energy == solo.energy,
+              f'serve: peer {r.req_id} of the faulty batch: forces and '
+              f'energy bitwise equal to its solo evaluation through the same'
+              f' bucket (E {getattr(batched, "energy", None)} eV)')
+        check(counts == want, f'serve: the solo step of {r.req_id} launched '
+              f'{counts} (1 of each kernel of the path, 0 others)')
+    bucket = table.select(reqs[0])
+    arrays = pack_batch(bucket, [reqs[0], reqs[3]], dev)
+    fn = serve_fn(bucket, dev)
+    fn(**arrays)
+    err = syncs(lambda: fn(**arrays))
+    check(err is None, f'serve: no host synchronization in a batched '
+          f'evaluation ({err or "none raised"})')
+    h = srv.health()
+    results = [srv.result(rid) for rid in
+               ('solo', 'h1', 'h2', 'h1-solo', 'h2-solo')]
+    check(h.degraded_steps == 0 and h.kernel_faults == {}
+          and all(r.impl == 'kernel' for r in results)
+          and h.compile_counts == {f'{bucket.key}/kernel': 1},
+          f'serve: clean run: degraded_steps {h.degraded_steps}, '
+          f'kernel_faults {h.kernel_faults}, impls '
+          f'{sorted({r.impl for r in results})}, builds {h.compile_counts}')
+
+    # quarantine (n128): a persistent kernel fault, two strikes
+    inj = ServeFaultInjector([ServeFault(step=1, kind='kernel_fault',
+                                         persistent=True)])
+    q = ForceServer(table, device=dev, quarantine_after=2, fault_hook=inj)
+    worst, impls = 0.0, []
+    for i in range(3):
+        r = serve_request(f'q{i}', OPEN_SIZES[0], 40 + i)
+        q.submit(r, now=float(i))
+        q.step(float(i))
+        res = q.result(r.req_id)
+        ref = srv.evaluate(replace(r, req_id=r.req_id + '-kernel'),
+                           now=3.0 + i)
+        impls.append(getattr(res, 'impl', repr(res)))
+        if isinstance(res, ForceResult):
+            worst = max(worst, rel_err(torch.as_tensor(res.forces),
+                                       torch.as_tensor(ref.forces))[1])
+    qh = q.health()
+    key = table.select(r).key
+    check(impls == ['jnp'] * 3 and qh.quarantined == (key,)
+          and qh.kernel_faults == {key: 2} and worst <= TOL[f32],
+          f'serve: quarantine on the card: impls {impls}, quarantined '
+          f'{qh.quarantined}, strikes {qh.kernel_faults}, degraded steps '
+          f'{qh.degraded_steps}; f32 adjoint forces vs the kernel path\'s: '
+          f'max rel err {worst:.3e} (bar {TOL[f32]:.0e})')
+    return srv
+
+
+def open_loop(table, dev, n, rate, bad, tag):
+    """A fresh f32 server (queue at least as deep as the run) driven by
+    ``n`` requests, sizes drawn from seed 0, exponential arrivals at
+    ``rate`` a second, a ``bad`` share poisoned by ``RequestFaultPlan``;
+    the launch counters set to 0 before and read after.  Fails unless
+    every request ends typed as planned with no degradation.  Returns
+    (health, launch counts)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_forces import (ForceResult, ForceServer,
+                                                 run_open_loop)
+    from repro_torch.md.fault_inject import RequestFaultPlan
+    rng = np.random.default_rng(0)
+    sizes = rng.choice(OPEN_SIZES, size=n)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n))
+    plan = RequestFaultPlan(fraction=bad, seed=0).assign(n)
+    schedule = []
+    for i in range(n):
+        kind = plan.get(i)
+        schedule.append((float(arrivals[i]), serve_request(
+            f'{tag}{i}', int(sizes[i]), 100 + i, poison=kind == 'nan_pos',
+            a=SERVE_DENSE_A if kind == 'overflow' else 3.1652)))
+    ol = ForceServer(table, device=dev, queue_depth=max(n, 64))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    h = run_open_loop(ol, schedule)
+    counts = ops.launch_counts()
+    steps = h.device_steps
+    served = [r for r in (ol.result(f'{tag}{i}') for i in range(n))
+              if isinstance(r, ForceResult)]
+    want = {k: (steps if k in PATHS['serve'] else 0) for k in counts}
+    check(counts == want and h.served == n - len(plan)
+          and h.failed == len(plan) and h.shed_count == 0
+          and h.degraded_steps == 0 and h.kernel_faults == {}
+          and all(r.impl == 'kernel' for r in served)
+          and h.compile_counts == {f'{table.select(r).key}/kernel': 1
+                                   for _, r in schedule},
+          f'serve open loop: {n} requests offered at {rate:g}/s, '
+          f'{len(plan)} poisoned: served {h.served}, failed {h.failed}, '
+          f'{steps} batched steps, launches {counts}, degraded '
+          f'{h.degraded_steps}, builds {h.compile_counts}')
+    print(f'     serve open loop ({n} requests offered at {rate:g}/s): '
+          f'p50 {h.p50_ms:.3f} ms, p99 {h.p99_ms:.3f} ms over {h.served} '
+          f'latencies, {h.throughput_rps:.1f} req/s served over the run '
+          f'({steps} steps, {h.served / steps:.2f} served a step)',
+          flush=True)
+    return h, counts
+
+
+def serve_timing(srv, table, batches, dev):
+    """The open-loop run (the serving main path: launch counters set to 0
+    before, read after); a ten times longer run at the same rate for the
+    tail; a run offered above capacity for the rate the service sustains;
+    ms per batched step a bucket; and a profile of one n2048 batched step.
+    Returns (launch counts of the main path's run, numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.md import cell_list as cl
+    # every shared cache (libraries, tables, plans) is warm: srv served
+    # both sizes; a fresh server times each run
+    srv.evaluate(serve_request('warm', OPEN_SIZES[0], 99))
+    h, counts = open_loop(table, dev, OPEN_N, OPEN_RATE, OPEN_BAD, 'o')
+    out = dict(p50_ms=h.p50_ms, p99_ms=h.p99_ms, rps=h.throughput_rps,
+               steps=h.device_steps)
+    h, _ = open_loop(table, dev, TAIL_N, OPEN_RATE, OPEN_BAD, 't')
+    out.update(tail_n=TAIL_N, tail_latencies=h.served, tail_p50_ms=h.p50_ms,
+               tail_p99_ms=h.p99_ms, tail_rps=h.throughput_rps,
+               tail_steps=h.device_steps)
+    h, _ = open_loop(table, dev, TAIL_N, SATURATE_RATE, 0.0, 's')
+    out.update(capacity_rps=h.throughput_rps, capacity_steps=h.device_steps,
+               capacity_per_step=h.served / h.device_steps)
+
+    # ms per batched step a bucket: a full batch submitted, one step timed
+    # on the host clock (it ends in the one readback), median of 5
+    for n_pad, natoms in zip(SERVE_NPADS, OPEN_SIZES):
+        times = []
+        for rep in range(5):
+            for s in SERVE_SEEDS:
+                srv.submit(serve_request(f't{n_pad}-{rep}-{s}', natoms, s),
+                           now=10.0 + rep)
+            t0 = time.perf_counter()
+            done, _ = srv.step(10.0 + rep)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f'step_ms_n{n_pad}'] = statistics.median(times)
+        print(f'     serve step n{n_pad} (batch of {SERVE_BATCH} x {natoms} '
+              f'atoms, f32): {out[f"step_ms_n{n_pad}"]:.3f} ms (median of 5,'
+              f' host clock, incl. packing and the readback)', flush=True)
+
+    # one n2048 batched evaluation: device time, the brute build's share
+    bucket, a = batches[SERVE_NPADS[1]]
+    fn = serve_fn(bucket, dev)
+    fn(**a)
+    torch.cuda.synchronize()
+    reps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(**a)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per = profile_summary(prof, wall_us, reps,
+                          f'serve profile n{bucket.n_pad} f32',
+                          'batched evaluation', 12) or {}
+    stage = {k: sum(us for name, (_, us) in per.items() if k in name) / reps
+             / 1e3 for k in ('snap_u', 'snap_y', 'snap_fused_de',
+                             'assemble_forces')}
+    build_ms, hidden_b = device_ms(lambda: cl.brute_neighbors_batched(
+        a['pos'], a['box'], RCUT, bucket.max_nbors, a['n_valid']), k=5)
+    eval_ms, hidden_e = device_ms(lambda: fn(**a), k=5)
+    out.update(build_device_ms=build_ms, eval_device_ms=eval_ms,
+               build_share=build_ms / eval_ms,
+               **{f'{k}_device_ms': v for k, v in stage.items()})
+    print(f'     serve n{bucket.n_pad}: brute build {build_ms:.4f} ms device, '
+          f'batched '
+          f'evaluation {eval_ms:.4f} ms device (build share '
+          f'{build_ms / eval_ms:.3f}; host hidden {hidden_b}/{hidden_e}); '
+          'kernels in the profile: ' + ', '.join(
+              f'{k} {v:.4f} ms' for k, v in stage.items()), flush=True)
+    return counts, out
+
+
+def serve_phase(dev):
+    """The batched force service at snap-2j8 (see the module docstring)."""
+    from repro_torch.launch.request_queue import BucketTable
+    t0 = time.perf_counter()
+    table = BucketTable(((8, RCUT),), SERVE_NPADS, SERVE_LADDER,
+                        SERVE_BATCH)
+    batches = serve_batches(table, dev)
+    serve_neighbor_checks(batches)
+    y_lanes = serve_kernel_checks(batches, dev)
+    srv = serve_service_checks(table, dev)
+    counts, numbers = serve_timing(srv, table, batches, dev)
+    print(f'     serve phase: {time.perf_counter() - t0:.1f} s wall',
+          flush=True)
+    return counts, numbers, y_lanes
+
+
 def big_phase(dev):
     """2J = 14 in float32: each half and full kernel vs plain, then the
     half-plane pipeline vs its plain pipeline, and its time."""
@@ -1020,6 +1505,8 @@ def main():
     for dtype in (torch.float64, torch.float32):
         stats[dtype].update(neighbor_phase(pos, box, dev, dtype))
     runs['device'] = device_loop_phase(cfg, beta, pos, box, dev)
+    serve_counts, serve_numbers, y_lanes = serve_phase(dev)
+    print('serve: ' + json.dumps(serve_numbers), flush=True)
     pe = {p: runs[p][1][-1]['pe'] for p in ('half', 'full')}
     d_pe = abs(pe['full'] - pe['half']) / abs(pe['half'])
     check(d_pe <= MD_PE_TOL, f'md: full-plane PE at step {MD_STEPS} '
@@ -1038,13 +1525,18 @@ def main():
         entry = dict(name=name, route='cuda', source=source,
                      replaces=replaces, launches=runs[path][0][name], **top,
                      dtype=dt, path=path,
-                     launches_device_loop=runs['device'][0][name])
+                     launches_device_loop=runs['device'][0][name],
+                     launches_serve=serve_counts[name])
         other, sfx = ((torch.float32, 'f32') if dt == 'float64'
                       else (torch.float64, 'f64'))
         entry.update({f'{k}_{sfx}': v
                       for k, v in stats[other][name].items()})
         if name in big:
             entry.update({f'{k}_2j14_f32': v for k, v in big[name].items()})
+        if name == 'snap_y_half':   # a coefficient row a lane (serving)
+            for dtype, st in y_lanes.items():
+                entry.update({f'{k}_lanes_{str(dtype)[6:]}': v
+                              for k, v in st.items()})
         kernels.append(entry)
     print(ident)
     print(json.dumps({'kernels': kernels}))

@@ -13,7 +13,7 @@ Port of ``repro.core.snap``.  Two force implementations behind
 
 ``energy_forces_autodiff`` (reverse mode through ``torch.autograd``) is the
 independent oracle.  The ``baseline`` pipeline and atom sharding are not
-ported yet (ROADMAP Queue A).
+ported yet (ROADMAP Queue A items 4 and 3).
 
 All pipelines consume padded per-atom neighbor lists:
     dx, dy, dz : [natoms, nnbor]   displacements r_k - r_i
@@ -151,10 +151,12 @@ def _bzero_vector(cfg: SnapConfig, dtype, device):
 
 
 def bzero_shift(cfg: SnapConfig, beta, dtype):
-    """Per-atom energy shift from the bzero self-contribution: bzero . beta."""
+    """Per-atom energy shift from the bzero self-contribution: bzero . beta
+    (beta [ncoeff]), or one a row of beta [L, ncoeff]: [L]."""
     if not cfg.bzero_flag:
         return 0.0
-    return _bzero_vector(cfg, dtype, beta.device) @ beta.to(dtype)
+    bz = _bzero_vector(cfg, dtype, beta.device)
+    return bz @ beta.to(dtype) if beta.ndim == 1 else beta.to(dtype) @ bz
 
 
 def energy_from_ylist(cfg: SnapConfig, ulisttot, ylist, beta, beta0):
@@ -252,5 +254,5 @@ def energy_forces(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx, mask,
                                        nbr_idx, mask, **kw)
     if impl == 'baseline':
         raise NotImplementedError(
-            "impl='baseline' is not ported yet (ROADMAP Queue A, item 9)")
+            "impl='baseline' is not ported yet (ROADMAP Queue A, item 4)")
     raise ValueError(f'unknown impl {impl!r}; choose from {IMPLEMENTATIONS}')

@@ -23,6 +23,12 @@
 // packed int32 an entry, src1 | s1 < 0 << 15 | src2 << 16 | s2 < 0 << 31,
 // and the coefficient beside it.
 //
+// Coefficients: one row [nnz] for every atom (lane_atoms 0), or one row a
+// lane of lane_atoms atoms, [n / lane_atoms][coef_stride] (the batched force
+// entry: B requests side by side on one atom axis, each with its own beta).
+// A lane is a whole number of atom tiles (the launcher checks it), so a
+// block reads the one row of its tile's lane: one pointer offset a block.
+//
 // Design.  A block owns an atom tile and one row group
 // (kernels/launch_plan.y_row_groups: a contiguous range of destination rows
 // with about equal entries).  It first stages the tile's whole U column
@@ -242,7 +248,7 @@ __global__ void __launch_bounds__(SNAP_Y_THREADS_MAX)
                   const unsigned* __restrict__ packed,
                   const T* __restrict__ coef, const int* __restrict__ segs,
                   T* __restrict__ y_r, T* __restrict__ y_i, int rows,
-                  int n) {
+                  int n, int lane_atoms, int coef_stride) {
   constexpr int W = YVec<T>::width, ATOMS = LANES * W;
   extern __shared__ __align__(16) unsigned char snap_smem[];
   const int slots = blockDim.y, lane = threadIdx.x, slot = threadIdx.y;
@@ -250,6 +256,8 @@ __global__ void __launch_bounds__(SNAP_Y_THREADS_MAX)
   T* const part_r = tile + rows * 2 * ATOMS;        // [slots][ATOMS]
   T* const part_i = part_r + slots * ATOMS;
   const int atom0 = blockIdx.x * ATOMS;
+  if (lane_atoms > 0)  // the coefficient row of this tile's lane
+    coef += (size_t)(atom0 / lane_atoms) * coef_stride;
 
   // the U column tile: row stride n in the planes
   const int tid = slot * LANES + lane, nthreads = slots * LANES;
@@ -362,19 +370,24 @@ static int launch_lanes(const void* ut_r, const void* ut_i,
                         const void* rowptr, const void* packed,
                         const void* coef, const void* segs, void* y_r,
                         void* y_i, int rows, int n, int slots, int groups,
-                        int smem, int device, cudaStream_t stream) {
+                        int smem, int lane_atoms, int coef_stride, int device,
+                        cudaStream_t stream) {
+  const int atoms = LANES * YVec<T>::width;
+  // no tile may straddle two lanes' coefficient rows
+  if (lane_atoms > 0 && (lane_atoms % atoms != 0 || n % lane_atoms != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool granted[SNAP_DEVICES] = {};  // per kernel instance, device
   cudaError_t err =
       allow_smem(snap_y_kernel<T, LANES, SIGMA, BF16>,
                  device < SNAP_DEVICES ? &granted[device] : nullptr);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int atoms = LANES * YVec<T>::width;
   const dim3 grid((n + atoms - 1) / atoms, groups), block(LANES, slots);
   snap_y_kernel<T, LANES, SIGMA, BF16><<<grid, block, smem, stream>>>(
       static_cast<const T*>(ut_r), static_cast<const T*>(ut_i),
       static_cast<const int*>(rowptr), static_cast<const unsigned*>(packed),
       static_cast<const T*>(coef), static_cast<const int*>(segs),
-      static_cast<T*>(y_r), static_cast<T*>(y_i), rows, n);
+      static_cast<T*>(y_r), static_cast<T*>(y_i), rows, n, lane_atoms,
+      coef_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,10 +395,11 @@ template <typename T, bool SIGMA, bool BF16>
 static int launch(const void* ut_r, const void* ut_i, const void* rowptr,
                   const void* packed, const void* coef, const void* segs,
                   void* y_r, void* y_i, int rows, int n, int lanes,
-                  int slots, int groups, int smem, int device, void* stream) {
+                  int slots, int groups, int smem, int lane_atoms,
+                  int coef_stride, int device, void* stream) {
   if (n < 0 || rows < 1 || rows > SNAP_Y_ROWS_MAX || slots < 1 ||
       lanes * slots > SNAP_Y_THREADS_MAX || groups < 1 || groups > rows ||
-      groups > 65535 ||
+      groups > 65535 || lane_atoms < 0 || coef_stride < 0 ||
       smem != y_smem_bytes(rows, (int)sizeof(T), lanes, slots) ||
       smem > SNAP_SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -397,7 +411,8 @@ static int launch(const void* ut_r, const void* ut_i, const void* rowptr,
   case L:                                                                   \
     return launch_lanes<T, L, SIGMA, BF16>(ut_r, ut_i, rowptr, packed, coef, \
                                            segs, y_r, y_i, rows, n, slots,  \
-                                           groups, smem, device, s);
+                                           groups, smem, lane_atoms,        \
+                                           coef_stride, device, s);
   switch (lanes) {
     SNAP_Y_LANES_CASE(4)
     SNAP_Y_LANES_CASE(8)
@@ -412,11 +427,12 @@ static int launch(const void* ut_r, const void* ut_i, const void* rowptr,
   extern "C" int name(const void* ut_r, const void* ut_i, const void* rowptr, \
                       const void* packed, const void* coef, const void* segs, \
                       void* y_r, void* y_i, int rows, int n, int lanes,      \
-                      int slots, int groups, int smem, int device,           \
-                      void* stream) {                                        \
+                      int slots, int groups, int smem, int lane_atoms,       \
+                      int coef_stride, int device, void* stream) {           \
     return launch<T, SIGMA, BF16>(ut_r, ut_i, rowptr, packed, coef, segs,    \
                                   y_r, y_i, rows, n, lanes, slots, groups,   \
-                                  smem, device, stream);                     \
+                                  smem, lane_atoms, coef_stride, device,     \
+                                  stream);                                   \
   }
 
 SNAP_Y_SYMBOL(snap_y_half_f32, float, true, false)

@@ -12,8 +12,11 @@ stage's operands to bfloat16.  Each stage goes through its wrapper, which
 launches the CUDA kernel on a CUDA tensor and runs the plain version on a
 CPU tensor.
 
-Not ported yet: the sharded and the batched (serving) force functions
-(ROADMAP Queue A, items 5 and 7).
+:func:`make_batched_force_fn` is the serving entry (port of the reference's
+``jax.vmap`` over one request a lane): B requests side by side on one atom
+axis, one launch of each stage a batch, the Y stage with one coefficient
+row a lane.  Not ported yet: the sharded force function (ROADMAP Queue A,
+item 3).
 """
 
 from __future__ import annotations
@@ -24,9 +27,10 @@ import numpy as np
 import torch
 
 from . import _build
+from ..analysis.retrace import record_trace
 from ..core.geometry import sanitize_displacements
 from ..core.snap import (SnapConfig, assemble_forces, bzero_shift,
-                         resolve_device)
+                         energy_forces_adjoint, resolve_device)
 from .common import LANES
 from .snap_fused_de import snap_fused_de_full, snap_fused_de_full_plain
 from .snap_fused_de_half import snap_fused_de_half, snap_fused_de_half_plain
@@ -127,16 +131,23 @@ def _energy_weights(cfg: SnapConfig, dtype, device, layout):
 
 
 def energy_from_ylist_lanes(cfg: SnapConfig, ut_r, ut_i, y_r, y_i,
-                            beta, beta0):
+                            beta, beta0, lanes=None):
     """Per-atom energy in plane layout: (2/3) sum_jju w Re(conj(U) Y).
 
     Operands are half [idxu_half_max, N] or full [idxu_max, N] planes,
     told apart by their row count.  The half form is exact because
-    ``dedr_weight`` is 0 on every mirrored row."""
+    ``dedr_weight`` is 0 on every mirrored row.  With ``lanes`` = L the N
+    atoms are L lanes of N / L, ``beta`` [L, ncoeff] and ``beta0`` [L]
+    hold each lane's potential, and the result is [L, N / L]."""
     layout = 'half' if ut_r.shape[0] == cfg.index.idxu_half_max else 'full'
     w = _energy_weights(cfg, ut_r.dtype, ut_r.device, layout)
     e_raw = (2.0 / 3.0) * torch.sum(w * (ut_r * y_r + ut_i * y_i), dim=0)
-    return beta0 + e_raw - bzero_shift(cfg, beta, e_raw.dtype)
+    shift = bzero_shift(cfg, beta, e_raw.dtype)
+    if lanes is None:
+        return beta0 + e_raw - shift
+    if isinstance(shift, torch.Tensor):
+        shift = shift[:, None]
+    return beta0.to(e_raw.dtype)[:, None] + e_raw.view(lanes, -1) - shift
 
 
 def _to_layout(cfg, dx, dy, dz, mask, dtype, device):
@@ -147,20 +158,31 @@ def _to_layout(cfg, dx, dy, dz, mask, dtype, device):
     return _kernel_layout(cfg, dx, dy, dz, mask, dtype)
 
 
-def _pipeline(stages, layout, cfg, beta, beta0, dx, dy, dz, nbr_idx, mask,
-              dtype, device, with_energy, mxu_dtype=None):
+def _stages(stages, layout, cfg, beta, disp, dtype, device, mxu_dtype,
+            lane_atoms=None):
+    """U -> Y -> fused dE on [nnbor, 4, N] planes: (ut_r, ut_i, y_r, y_i,
+    dedr).  ``lane_atoms``: beta is [L, ncoeff], a row a lane of
+    ``lane_atoms`` atoms."""
     u_stage, y_stage, de_stage, coef_of = stages
-    disp, ok, natoms = _to_layout(cfg, dx, dy, dz, mask, dtype, device)
-    nbr_idx = torch.as_tensor(nbr_idx, device=device, dtype=torch.long)
-    beta = torch.as_tensor(beta, device=device)
     geo = dict(twojmax=cfg.twojmax, rcut=cfg.rcut, rmin0=cfg.rmin0,
                rfac0=cfg.rfac0, switch_flag=cfg.switch_flag)
     ut_r, ut_i = u_stage(disp, **geo)
     ut_r = ut_r + _self_planes(cfg, dtype, device, layout)
     coef = coef_of(beta, cfg.twojmax).to(dtype)
     y_kw = {} if mxu_dtype is None else dict(mxu_dtype=mxu_dtype)
+    if lane_atoms is not None:
+        y_kw['lane_atoms'] = lane_atoms
     y_r, y_i = y_stage(ut_r, ut_i, coef, twojmax=cfg.twojmax, **y_kw)
-    dedr = de_stage(disp, y_r, y_i, **geo)
+    return ut_r, ut_i, y_r, y_i, de_stage(disp, y_r, y_i, **geo)
+
+
+def _pipeline(stages, layout, cfg, beta, beta0, dx, dy, dz, nbr_idx, mask,
+              dtype, device, with_energy, mxu_dtype=None):
+    disp, ok, natoms = _to_layout(cfg, dx, dy, dz, mask, dtype, device)
+    nbr_idx = torch.as_tensor(nbr_idx, device=device, dtype=torch.long)
+    beta = torch.as_tensor(beta, device=device)
+    ut_r, ut_i, y_r, y_i, dedr = _stages(stages, layout, cfg, beta, disp,
+                                         dtype, device, mxu_dtype)
     # pipeline exit: per-pair dE back to [natoms, nnbor, 3] force assembly
     dedr_pairs = dedr[:, :3, :natoms].permute(2, 0, 1)
     forces = assemble_forces(dedr_pairs, nbr_idx, ok, natoms)
@@ -201,6 +223,130 @@ def plain_force_pipeline(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx,
     device = resolve_device(device)
     return _pipeline(_PLAIN_STAGES[layout], layout, cfg, beta, beta0, dx, dy,
                      dz, nbr_idx, mask, dtype, device, with_energy, mxu_dtype)
+
+
+def _lanes_flat(t, lane_atoms):
+    """[B, n, ...] -> [B * lane_atoms, ...]: each lane padded with zeros
+    (False) to ``lane_atoms`` rows, lanes side by side."""
+    out = t.new_zeros((t.shape[0], lane_atoms) + tuple(t.shape[2:]))
+    out[:, :t.shape[1]] = t
+    return out.reshape((-1,) + tuple(t.shape[2:]))
+
+
+def _batched_kernel(cfg, beta, beta0, disp, nbr_idx, mask, dtype, device,
+                    layout, mxu_dtype, lane_atoms):
+    """One launch of each stage for all B lanes: (e_atom [B, n_pad],
+    forces [B, n_pad, 3]) in ``dtype``."""
+    B, n_pad = mask.shape[:2]
+    # each lane's neighbor indices name atoms of its own lane; masked slots
+    # get the sentinel B * lane_atoms in assemble_forces
+    base = torch.arange(B, device=device) * lane_atoms
+    nbr = _lanes_flat(nbr_idx.long() + base[:, None, None], lane_atoms)
+    d = [_lanes_flat(disp[..., c], lane_atoms) for c in range(3)]
+    planes, ok, natoms = _to_layout(cfg, *d, _lanes_flat(mask, lane_atoms),
+                                    dtype, device)
+    ut_r, ut_i, y_r, y_i, dedr = _stages(_STAGES[layout], layout, cfg, beta,
+                                         planes, dtype, device, mxu_dtype,
+                                         lane_atoms)
+    forces = assemble_forces(dedr[:, :3, :].permute(2, 0, 1), nbr, ok,
+                             natoms)
+    e_atom = energy_from_ylist_lanes(cfg, ut_r, ut_i, y_r, y_i, beta, beta0,
+                                     lanes=B)
+    return e_atom[:, :n_pad], forces.view(B, lane_atoms, 3)[:, :n_pad]
+
+
+def _batched_adjoint(cfg, beta, beta0, disp, nbr_idx, mask, device, kw):
+    """The adjoint pipeline lane by lane, in ``cfg.dtype``."""
+    outs = [energy_forces_adjoint(cfg, beta[b], beta0[b], disp[b, ..., 0],
+                                  disp[b, ..., 1], disp[b, ..., 2],
+                                  nbr_idx[b], mask[b], device=device, **kw)
+            for b in range(mask.shape[0])]
+    return (torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]))
+
+
+def make_batched_force_fn(cfg: SnapConfig, n_pad: int, max_nbors: int,
+                          impl: str = 'kernel', dtype=torch.float32,
+                          device='cuda', trace_counter=None, **kw):
+    """Batched force entry of the serving front end (port of the
+    reference's ``make_batched_force_fn``).  Returns
+
+        fn(pos [B, n_pad, 3], box [B, 3], beta [B, ncoeff], beta0 [B],
+           n_valid [B] int32) -> (e [B], forces [B, n_pad, 3],
+                                  flags [B, N_FLAGS] int32)
+
+    on ``device`` (inputs: tensors on it, or arrays).  Each lane is one
+    configuration: the fixed-shape O(N^2) neighbor build
+    (:func:`repro_torch.md.cell_list.brute_neighbors_batched`, in the
+    positions' dtype), then the force pipeline.  Atoms at index >=
+    ``n_valid`` are masked out of the energy and the forces.
+
+    impl='kernel': the B lanes side by side on one atom axis, each padded
+    to ``lane_atoms = round_up(n_pad, 128)`` atoms (the reference's
+    per-lane padding), so U, Y, fused dE and the assembly launch once a
+    batch whatever B is; the Y stage reads a coefficient row a lane (each
+    lane's beta).  Computed in ``dtype``; ``kw``: ``layout`` and
+    ``mxu_dtype`` as in :func:`snap_force_pipeline`.  The launch plans
+    depend on the width B * lane_atoms, so a lane's bits are those of the
+    same request in any lane of any batch of the same B and n_pad.
+    impl='adjoint': ``energy_forces_adjoint`` lane by lane in
+    ``cfg.dtype`` (the service's quarantine path; ``kw`` goes to it).
+
+    Flags, reduced over each lane alone: ``FLAG_NBR_MAX`` the largest
+    neighbor count (overflow above ``max_nbors``), ``FLAG_CELL_MAX`` 0,
+    ``FLAG_NAN_FORCE`` non-finite forces or energy, ``FLAG_NAN_STATE``
+    non-finite positions of valid atoms.  Building the function adds one
+    to ``trace_counter['traces']``.  Nothing in ``fn`` reads the device
+    back.
+    """
+    from ..md.cell_list import (FLAG_CELL_MAX, FLAG_NAN_FORCE,
+                                FLAG_NAN_STATE, FLAG_NBR_MAX, N_FLAGS,
+                                brute_neighbors_batched)
+    if impl not in ('kernel', 'adjoint'):
+        raise ValueError(f"unknown impl {impl!r}; choose 'kernel' or "
+                         "'adjoint'")
+    device = resolve_device(device)
+    if impl == 'kernel':
+        layout = kw.pop('layout', 'half')
+        mxu_dtype = kw.pop('mxu_dtype', None)
+        if kw:
+            raise TypeError(f'unknown kernel options {sorted(kw)}')
+        _check_options(layout, mxu_dtype)
+    lane_atoms = -(-n_pad // LANES) * LANES
+    record_trace(trace_counter)
+
+    def fn(pos, box, beta, beta0, n_valid):
+        pos, box, beta, beta0 = (torch.as_tensor(v, device=device)
+                                 for v in (pos, box, beta, beta0))
+        n_valid = torch.as_tensor(n_valid, device=device)
+        B = pos.shape[0]
+        ok_atom = (torch.arange(n_pad, device=device)[None, :]
+                   < n_valid[:, None])
+        nbr_idx, mask, disp, bflags = brute_neighbors_batched(
+            pos, box, cfg.rcut, max_nbors, n_valid)
+        nan_state = ~torch.isfinite(torch.where(
+            ok_atom[..., None], pos, 0.0)).flatten(1).all(dim=1)
+        if impl == 'kernel':
+            e_atom, f = _batched_kernel(cfg, beta, beta0, disp, nbr_idx,
+                                        mask, dtype, device, layout,
+                                        mxu_dtype, lane_atoms)
+        else:
+            e_atom, f = _batched_adjoint(cfg, beta, beta0, disp, nbr_idx,
+                                         mask, device, kw)
+        # padded atoms see no neighbors but still carry the Wigner
+        # self-energy: masked out of both outputs
+        f = torch.where(ok_atom[..., None], f, 0.0)
+        e = torch.where(ok_atom, e_atom, 0.0).sum(dim=1)
+        nan_force = ~(torch.isfinite(f).flatten(1).all(dim=1)
+                      & torch.isfinite(e))
+        flags = torch.zeros((B, N_FLAGS), dtype=torch.int32, device=device)
+        flags[:, FLAG_NBR_MAX] = bflags[:, 0]
+        flags[:, FLAG_CELL_MAX] = bflags[:, 1]
+        flags[:, FLAG_NAN_FORCE] = nan_force.to(torch.int32)
+        flags[:, FLAG_NAN_STATE] = nan_state.to(torch.int32)
+        return e, f, flags
+
+    return fn
 
 
 # ---------------------------------------------------------------------------

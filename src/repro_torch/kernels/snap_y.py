@@ -28,6 +28,12 @@ block's U column tile in shared memory and walk the table without atomics,
 with the plan of :func:`launch_plan.y_plan` and the row groups and slot
 shares of :func:`launch_plan.y_segments`.  The ``*_plain`` functions are
 the same sums in plain PyTorch.
+
+Coefficients are one row ``[nnz]`` for every atom, or, for the batched
+force entry (:func:`repro_torch.kernels.ops.make_batched_force_fn`: B
+requests side by side on one atom axis, each with its own beta), one row
+a lane ``[L, nnz]`` with ``lane_atoms`` atoms a lane: the TPU kernel got
+the same from ``jax.vmap``, one grid slice a lane.
 """
 
 from __future__ import annotations
@@ -39,13 +45,14 @@ import numpy as np
 import torch
 
 from . import _build
-from .launch_plan import y_plan, y_segments
+from .launch_plan import y_atoms, y_plan, y_segments
 from ..core.indices import build_index
 
 _CHUNK_BYTES = 256 * 1024 * 1024   # bound of one gathered [chunk, N] buffer
 # planes, row pointers, packed table, coefficients, slot shares, outputs;
-# rows, n and the plan's lanes, slots, groups and shared bytes
-_ARGS = (_build.P,) * 8 + (_build.I,) * 6
+# rows, n, the plan's lanes, slots, groups and shared bytes, and the
+# coefficient rows' lane width and stride (0, 0: one row)
+_ARGS = (_build.P,) * 8 + (_build.I,) * 8
 MXU_DTYPES = (None, torch.bfloat16)
 SRC_BITS = 15           # a packed source index: rows < 2**15
 
@@ -167,18 +174,20 @@ def _coef(beta, twojmax, layout):
     # an f32 beta gives f32 arithmetic throughout
     jjb, y_fac, jjz, cg = _coef_tables(twojmax, beta.dtype, beta.device,
                                        layout)
-    return cg * (y_fac * beta[jjb])[jjz]
+    return cg * (y_fac * beta[..., jjb])[..., jjz]
 
 
 def y_coef_half(beta, twojmax: int):
     """Per-entry coefficient ``cg_folded * y_fac * beta[y_jjb]`` in the CSR
-    order of :func:`y_half_csr`: [nnz] in beta's dtype on beta's device."""
+    order of :func:`y_half_csr`: beta [ncoeff] -> [nnz], or [L, ncoeff] ->
+    [L, nnz] (a row a lane), in beta's dtype on beta's device."""
     return _coef(beta, twojmax, 'half')
 
 
 def y_coef(beta, twojmax: int):
     """Per-entry coefficient ``cg * y_fac * beta[y_jjb]`` in the CSR order
-    of :func:`y_full_csr`: [nnz] in beta's dtype on beta's device."""
+    of :func:`y_full_csr`: beta [ncoeff] -> [nnz], or [L, ncoeff] -> [L,
+    nnz], in beta's dtype on beta's device."""
     return _coef(beta, twojmax, 'full')
 
 
@@ -203,7 +212,7 @@ def round_bf16(x):
     return bits.view(torch.float64)
 
 
-def _check(ut_r, ut_i, coef, twojmax, layout):
+def _check(ut_r, ut_i, coef, twojmax, layout, lane_atoms):
     for name, t in (('ut_r', ut_r), ('ut_i', ut_i), ('coef', coef)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f'{name} must be a tensor')
@@ -219,14 +228,30 @@ def _check(ut_r, ut_i, coef, twojmax, layout):
     if ut_r.ndim != 2 or ut_r.shape[0] != nrows or ut_i.shape != ut_r.shape:
         raise ValueError(f'U planes must be [{nrows}, N], got '
                          f'{tuple(ut_r.shape)} / {tuple(ut_i.shape)}')
-    if coef.shape != (len(t.dest),):
-        raise ValueError(f'coef must be [{len(t.dest)}], got '
-                         f'{tuple(coef.shape)}')
+    nnz, n = len(t.dest), ut_r.shape[1]
+    if lane_atoms is None:
+        if coef.shape != (nnz,):
+            raise ValueError(f'coef must be [{nnz}], got {tuple(coef.shape)}'
+                             ' (a row a lane needs lane_atoms)')
+        return
+    # a row a lane: every atom tile of the kernel lies inside one lane
+    tile = y_atoms(ut_r.element_size(),
+                   y_plan(twojmax, ut_r.dtype, layout, n).lanes)
+    if coef.ndim != 2 or coef.shape[1] != nnz or \
+            coef.shape[0] * lane_atoms != n:
+        raise ValueError(f'coef must be [L, {nnz}] with L * lane_atoms = '
+                         f'{n}, got {tuple(coef.shape)} and lane_atoms '
+                         f'{lane_atoms}')
+    if lane_atoms <= 0 or lane_atoms % tile:
+        raise ValueError(f'lane_atoms {lane_atoms} must be a positive '
+                         f'multiple of the Y tile of {tile} atoms')
 
 
-def _y_plain(ut_r, ut_i, coef, twojmax, layout, bf16=False):
+def _y_plain(ut_r, ut_i, coef, twojmax, layout, bf16=False,
+             lane_atoms=None):
     """Gathers and ``index_add_`` over the CSR-ordered table, chunked so a
-    gathered [chunk, N] buffer stays under 256 MB."""
+    gathered [chunk, N] buffer stays under 256 MB.  With ``lane_atoms``,
+    ``coef`` has a row a lane and each atom takes its lane's row."""
     dev, dt = ut_r.device, ut_r.dtype
     dest, src1, src2, sig1, sig2 = y_tables(twojmax, dt, dev, layout)
     y_r, y_i = torch.zeros_like(ut_r), torch.zeros_like(ut_i)
@@ -234,6 +259,8 @@ def _y_plain(ut_r, ut_i, coef, twojmax, layout, bf16=False):
         ut_r, ut_i, coef = round_bf16(ut_r), round_bf16(ut_i), \
             round_bf16(coef)
     n = ut_r.shape[1]
+    lane = (None if lane_atoms is None else
+            torch.arange(n, device=dev) // lane_atoms)
     chunk = max(1, _CHUNK_BYTES // max(1, n * ut_r.element_size()))
     for lo in range(0, len(dest), chunk):
         s = slice(lo, lo + chunk)
@@ -245,31 +272,34 @@ def _y_plain(ut_r, ut_i, coef, twojmax, layout, bf16=False):
         p_r, p_i = v1r * v2r - v1i * v2i, v1r * v2i + v1i * v2r
         if bf16:
             p_r, p_i = round_bf16(p_r), round_bf16(p_i)
-        c = coef[s, None]
+        c = coef[s, None] if lane is None else coef[:, s][lane].T
         d = dest[s].long()
         y_r.index_add_(0, d, c * p_r)
         y_i.index_add_(0, d, c * p_i)
     return y_r, y_i
 
 
-def snap_y_half_plain(ut_r, ut_i, coef, *, twojmax, mxu_dtype=None):
+def snap_y_half_plain(ut_r, ut_i, coef, *, twojmax, mxu_dtype=None,
+                      lane_atoms=None):
     """Plain version of :func:`snap_y_half`."""
     check_mxu_dtype(mxu_dtype)
     return _y_plain(ut_r, ut_i, coef, twojmax, 'half',
-                    bf16=mxu_dtype is not None)
+                    bf16=mxu_dtype is not None, lane_atoms=lane_atoms)
 
 
-def snap_y_full_plain(ut_r, ut_i, coef, *, twojmax):
+def snap_y_full_plain(ut_r, ut_i, coef, *, twojmax, lane_atoms=None):
     """Plain version of :func:`snap_y_full`."""
-    return _y_plain(ut_r, ut_i, coef, twojmax, 'full')
+    return _y_plain(ut_r, ut_i, coef, twojmax, 'full',
+                    lane_atoms=lane_atoms)
 
 
-def _y(name, layout, ut_r, ut_i, coef, twojmax, mxu_dtype=None):
-    _check(ut_r, ut_i, coef, twojmax, layout)
+def _y(name, layout, ut_r, ut_i, coef, twojmax, mxu_dtype=None,
+       lane_atoms=None):
+    _check(ut_r, ut_i, coef, twojmax, layout, lane_atoms)
     check_mxu_dtype(mxu_dtype)
     if ut_r.device.type == 'cpu':
         return _y_plain(ut_r, ut_i, coef, twojmax, layout,
-                        bf16=mxu_dtype is not None)
+                        bf16=mxu_dtype is not None, lane_atoms=lane_atoms)
     if ut_r.device.type != 'cuda':
         raise RuntimeError(f'{name}: no kernel for device {ut_r.device}')
     if mxu_dtype is not None:
@@ -282,26 +312,34 @@ def _y(name, layout, ut_r, ut_i, coef, twojmax, mxu_dtype=None):
     sym = name + ('_f32' if ut_r.dtype == torch.float32 else '_f64')
     _build.launch('snap_y', sym, _ARGS, ut_r, ut_i, tables[0], tables[1],
                   coef, tables[2], y_r, y_i, rows, n, plan.lanes,
-                  plan.threads, plan.groups, plan.smem)
+                  plan.threads, plan.groups, plan.smem, lane_atoms or 0,
+                  coef.shape[-1] if lane_atoms else 0)
     _build.LAUNCHES[name] += 1
     return y_r, y_i
 
 
-def snap_y_half(ut_r, ut_i, coef, *, twojmax, mxu_dtype=None):
+def snap_y_half(ut_r, ut_i, coef, *, twojmax, mxu_dtype=None,
+                lane_atoms=None):
     """ut_r/ut_i: [idxu_half_max, natoms_pad] half U planes (self term
-    included); coef: [nnz] from :func:`y_coef_half`, in the planes' dtype.
+    included); coef: [nnz] from :func:`y_coef_half`, in the planes' dtype,
+    or, with ``lane_atoms``, [L, nnz]: atom a takes row a // lane_atoms
+    (L * lane_atoms = natoms_pad, lane_atoms a multiple of the kernel's
+    atom tile).
 
     Returns (y_r, y_i) [idxu_half_max, natoms_pad]: the left rows of the
     adjoint on the weighted support (dropped weight-0 middle-row columns
     read 0).  ``mxu_dtype=torch.bfloat16`` rounds u, the complex products
     and the coefficients to bfloat16 and sums in the planes' dtype (its
     launches count as ``snap_y_half_bf16``)."""
-    return _y('snap_y_half', 'half', ut_r, ut_i, coef, twojmax, mxu_dtype)
+    return _y('snap_y_half', 'half', ut_r, ut_i, coef, twojmax, mxu_dtype,
+              lane_atoms)
 
 
-def snap_y_full(ut_r, ut_i, coef, *, twojmax):
+def snap_y_full(ut_r, ut_i, coef, *, twojmax, lane_atoms=None):
     """ut_r/ut_i: [idxu_max, natoms_pad] full U planes (self term
-    included); coef: [nnz] from :func:`y_coef`, in the planes' dtype.
+    included); coef: [nnz] from :func:`y_coef`, in the planes' dtype, or
+    [L, nnz] with ``lane_atoms`` as in :func:`snap_y_half`.
 
     Returns (y_r, y_i) [idxu_max, natoms_pad], the mirror rows 0."""
-    return _y('snap_y_full', 'full', ut_r, ut_i, coef, twojmax)
+    return _y('snap_y_full', 'full', ut_r, ut_i, coef, twojmax,
+              lane_atoms=lane_atoms)

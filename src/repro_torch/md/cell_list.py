@@ -188,28 +188,49 @@ def brute_neighbors_device(pos, box, rcut, max_nbors: int, n_valid=None):
     Non-finite positions never produce pairs (NaN compares false).
 
     Returns ``(nbr_idx [N, K] int32, mask [N, K] bool, disp [N, K, 3],
-    flags [2] int32)`` with ``disp = pos[nbr] - pos[i]`` minimum-imaged.
+    flags [2] int32)`` with ``disp = pos[nbr] - pos[i]`` minimum-imaged:
+    lane 0 of :func:`brute_neighbors_batched`.
     """
     N, dev = pos.shape[0], pos.device
+    n_valid = torch.as_tensor(N if n_valid is None else n_valid, device=dev)
     box = torch.as_tensor(box, dtype=pos.dtype, device=dev)
+    out = brute_neighbors_batched(pos[None], box[None], rcut, max_nbors,
+                                  n_valid.reshape(1))
+    return tuple(t[0] for t in out)
+
+
+def brute_neighbors_batched(pos, box, rcut, max_nbors: int, n_valid):
+    """The O(N^2) build of B configurations at once (plain torch; the
+    reference builds it as ``jax.vmap`` of its one-lane jnp build).
+
+    ``pos`` [B, N, 3], ``box`` [B, 3] and ``n_valid`` [B] are tensors on one
+    device.  A lane's outputs depend on that lane alone, and nothing is
+    read back to the host.  r^2 is (x^2 + y^2) + z^2 and the valid pairs
+    are packed to the front of each row by a stable sort, as in the
+    reference.  Returns ``(nbr_idx [B, N, K] int32, mask [B, N, K] bool,
+    disp [B, N, K, 3], flags [B, 2] int32)``.
+    """
+    B, N, dev = pos.shape[0], pos.shape[1], pos.device
+    box = torch.as_tensor(box, dtype=pos.dtype, device=dev)[:, None, None, :]
     iota = torch.arange(N, dtype=torch.int32, device=dev)
-    ok_atom = iota < (N if n_valid is None else n_valid)
-    d = pos[None, :, :] - pos[:, None, :]
+    ok_atom = iota[None, :] < torch.as_tensor(n_valid, device=dev)[:, None]
+    d = pos[:, None, :, :] - pos[:, :, None, :]
     dd = d - box * torch.round(d / box)
     r2 = (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]) + \
         dd[..., 2] * dd[..., 2]
-    within = ((iota[None, :] != iota[:, None])
-              & ok_atom[None, :] & ok_atom[:, None]
+    within = ((iota[None, :] != iota[:, None])[None]
+              & ok_atom[:, None, :] & ok_atom[:, :, None]
               & (r2 < rcut * rcut))
-    counts = within.sum(dim=1)
+    counts = within.sum(dim=2)
     key = torch.logical_not(within).to(torch.int32)
-    ordk = torch.argsort(key, dim=1, stable=True)[:, :max_nbors]
-    mask = torch.take_along_dim(within, ordk, dim=1)
+    ordk = torch.argsort(key, dim=2, stable=True)[:, :, :max_nbors]
+    mask = torch.take_along_dim(within, ordk, dim=2)
     nbr_idx = torch.where(mask, ordk, 0).to(torch.int32)
     disp = torch.where(mask[..., None],
-                       torch.take_along_dim(dd, ordk[..., None], dim=1), 0.0)
-    flags = torch.stack([counts.max().to(torch.int32),
-                         torch.zeros((), dtype=torch.int32, device=dev)])
+                       torch.take_along_dim(dd, ordk[..., None], dim=2), 0.0)
+    flags = torch.stack([counts.amax(dim=1).to(torch.int32),
+                         torch.zeros(B, dtype=torch.int32, device=dev)],
+                        dim=1)
     return nbr_idx, mask, disp, flags
 
 

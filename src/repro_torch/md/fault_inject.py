@@ -1,8 +1,13 @@
-"""Deterministic fault injection for the resilient MD device loop.
+"""Deterministic fault injection for the resilient MD device loop and the
+force service.
 
-Port of the MD part of ``repro.md.fault_inject`` (the request and chaos
-injectors of the force service wait for its port, ROADMAP Queue A item 5).
-The device loop calls its ``fault_hook`` once per chunk boundary, after
+Port of ``repro.md.fault_inject`` but for ``ChaosPlan``, which waits for
+the chaos soak (ROADMAP Queue A item 2).  The request faults
+(:class:`KernelPathFault`, :func:`poison_request_positions`,
+:class:`RequestFaultPlan`, :class:`ServeFault`,
+:class:`ServeFaultInjector`) drive
+:class:`repro_torch.launch.serve_forces.ForceServer`; the rest of this
+docstring is about the MD faults.  The device loop calls its ``fault_hook`` once per chunk boundary, after
 keeping the last-good carry but *before* launching the chunk — so an
 injected fault corrupts exactly one chunk attempt and the rollback target
 stays clean:
@@ -26,7 +31,9 @@ Faults fire at the first chunk boundary whose absolute step is >= their
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+import numpy as np
 
 from .cell_list import FLAG_CELL_MAX, FLAG_NBR_MAX, CellGrid
 
@@ -95,3 +102,123 @@ class FaultInjector:
                 carry['flags'] = _set(carry['flags'], FLAG_CELL_MAX,
                                       grid.cell_cap + 2)
         return carry
+
+
+# ---------------------------------------------------------------------------
+# request-level faults for the force service (launch/serve_forces)
+# ---------------------------------------------------------------------------
+
+class KernelPathFault(RuntimeError):
+    """A deliberately induced kernel-path failure during a serve step.
+
+    Models the faults the graceful-degradation policy exists for: the
+    kernel path dying on a bucket (a runtime bug, out of memory, a
+    kernel that fails to launch) while the adjoint path stays healthy.  The
+    server answers by re-running the step on the adjoint path and — after
+    a bounded number of such faults — quarantining the bucket to it.
+    """
+
+    def __init__(self, bucket_key: str, step: int):
+        self.bucket_key = bucket_key
+        self.step = int(step)
+        super().__init__(f'simulated kernel-path fault for bucket '
+                         f'{bucket_key} at serve step {self.step}')
+
+
+REQUEST_KINDS = ('nan_pos', 'overflow')
+
+
+def poison_request_positions(pos):
+    """NaN-poison one coordinate — the canonical bad-input request."""
+    pos = np.array(pos, dtype=float, copy=True)
+    pos[0, 0] = np.nan
+    return pos
+
+
+@dataclass
+class RequestFaultPlan:
+    """Deterministically poison a fraction of a synthetic request stream.
+
+    ``assign(n)`` picks ``round(fraction * n)`` request indices with a
+    seeded numpy RNG and cycles them through ``kinds`` — the reference's
+    plan for the same seed.  'nan_pos' requests carry a non-finite
+    coordinate; 'overflow' requests must be *constructed* overflowing
+    (denser than the bucket's neighbor width) by the load generator — the
+    plan only decides which indices get that treatment.
+    """
+    fraction: float = 0.1
+    seed: int = 0
+    kinds: tuple = REQUEST_KINDS
+
+    def assign(self, n_requests: int) -> Dict[int, str]:
+        for k in self.kinds:
+            if k not in REQUEST_KINDS:
+                raise ValueError(f'unknown request fault kind {k!r}; '
+                                 f'choose from {REQUEST_KINDS}')
+        n_bad = int(round(self.fraction * n_requests))
+        rng = np.random.default_rng(self.seed)
+        idx = rng.choice(n_requests, size=min(n_bad, n_requests),
+                         replace=False)
+        return {int(i): self.kinds[j % len(self.kinds)]
+                for j, i in enumerate(sorted(idx))}
+
+
+SERVE_KINDS = ('kernel_fault', 'transient_nan')
+
+
+@dataclass
+class ServeFault:
+    """One serve-step fault: fires at the first step index >= ``step``."""
+    step: int
+    kind: str                  # one of SERVE_KINDS
+    bucket_key: Optional[str] = None   # None = any bucket
+    persistent: bool = False
+
+    def __post_init__(self):
+        if self.kind not in SERVE_KINDS:
+            raise ValueError(f'unknown serve fault kind {self.kind!r}')
+
+
+@dataclass
+class ServeFaultInjector:
+    """Deterministic per-step fault plan for the force server.
+
+    A valid ``fault_hook`` for
+    :class:`repro_torch.launch.serve_forces.ForceServer`: called once per
+    batch dispatch with ``(step, bucket_key, arrays, impl)`` *after*
+    admission, so the queued request — the retry's source — stays clean.
+
+    - 'kernel_fault' raises :class:`KernelPathFault`: the server re-runs
+      the step on the adjoint path and counts a strike toward the
+      bucket's quarantine.  It fires only when the dispatching path is the
+      kernel one, so quarantine ends the fault storm.
+    - 'transient_nan' poisons a clone of the packed position tensor
+      (atom 0 of every lane) on any path: input-clean requests come back
+      flagged, and the server requeues them with backoff.
+    """
+    faults: List[ServeFault]
+    fired: List[Dict] = field(default_factory=list)
+
+    def __call__(self, step: int, bucket_key: str, arrays: Dict,
+                 impl: str = 'kernel') -> Dict:
+        arrays = dict(arrays)
+        for fault in self.faults:
+            if step < fault.step:
+                continue
+            if fault.kind == 'kernel_fault' and impl != 'kernel':
+                continue
+            if fault.bucket_key is not None \
+                    and fault.bucket_key != bucket_key:
+                continue
+            if not fault.persistent and any(
+                    f['kind'] == fault.kind and f['fault_step'] == fault.step
+                    for f in self.fired):
+                continue
+            self.fired.append(dict(step=step, fault_step=fault.step,
+                                   kind=fault.kind, bucket=bucket_key))
+            if fault.kind == 'kernel_fault':
+                raise KernelPathFault(bucket_key, step)
+            pos = arrays['pos'].clone()
+            pos[:, 0, 0] = float('nan')
+            arrays['pos'] = pos
+        return arrays

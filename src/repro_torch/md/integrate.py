@@ -32,6 +32,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..analysis.retrace import record_trace
 from ..core.snap import SnapConfig, energy_forces, resolve_device
 from ..runtime.checkpoint import host_array
 from .cell_list import (FLAG_DRIFT, FLAG_ESCAPE, FLAG_NAN_FORCE,
@@ -241,8 +242,7 @@ def make_device_chunk_fn(cfg: SnapConfig, dt, mass, grid, force_fn,
     acc_scale = ACC_CONV / mass
     half_skin2 = (0.5 * grid.skin) ** 2
     rc2 = cfg.rcut * cfg.rcut
-    if trace_counter is not None:
-        trace_counter['traces'] = trace_counter.get('traces', 0) + 1
+    record_trace(trace_counter)
     guards = policy is not None
     escape_factor = getattr(policy, 'escape_factor', None)
     drift_tol = getattr(policy, 'drift_tol', None)
@@ -344,7 +344,7 @@ def _run_nve_device(cfg, force_fn, state, n_steps, dt, mass, max_nbors,
     if shards > 1:
         raise NotImplementedError(
             'shards > 1 (the atom-sharded force) is not ported yet '
-            '(ROADMAP Queue A, item 7)')
+            '(ROADMAP Queue A, item 3)')
     cache = fn_cache if fn_cache is not None else {}
     n_atoms = len(state.pos)
     events = cache.setdefault('recovery_events', [])

@@ -188,10 +188,11 @@ class HealthReport:
 def lane_health(flags, max_nbors: int, rcut: float) -> HealthReport:
     """Decode one *batch lane's* flag vector from the serving path.
 
-    The reference's batched force entry (``make_batched_force_fn``, not
-    ported yet: ROADMAP Queue A item 5) emits the same ``FLAG_*`` lattice
-    as the MD device loop but per request lane, with no cell table behind
-    it — so the capacity context is just
+    The batched force entry
+    (:func:`repro_torch.kernels.ops.make_batched_force_fn`, read by
+    :class:`repro_torch.launch.serve_forces.ForceServer`) emits the same
+    ``FLAG_*`` lattice as the MD device loop but per request lane, with no
+    cell table behind it — so the capacity context is just
     the bucket's ``max_nbors``.  A synthetic single-cell grid carries that
     bound so every :class:`HealthReport` property (``overflow``,
     ``numeric``, ``ok``, ``issues``) works unchanged on serving lanes.

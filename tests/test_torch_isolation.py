@@ -37,7 +37,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_isolation_scan_covers_the_package():
     names = {p.name for p in FILES}
-    assert {'ops.py', 'snap.py', 'integrate.py', 'chip_smoke.py'} <= names
+    assert {'ops.py', 'snap.py', 'integrate.py', 'chip_smoke.py',
+            'serve_forces.py', 'request_queue.py'} <= names
 
 
 @pytest.fixture
@@ -76,6 +77,19 @@ def test_md_device_engine_without_card_raises(no_card):
     state = tmd.MDState(pos=pos, vel=np.zeros((8, 3)), box=np.full(3, 10.0))
     with pytest.raises(RuntimeError, match='cuda'):
         tmd.run_nve(_args()[0], _args()[1], 0.0, state, 1, loop='device')
+
+
+def test_force_service_without_card_raises(no_card):
+    """The batched force entry and the server default to the card too."""
+    from repro_torch.launch.request_queue import BucketTable
+    from repro_torch.launch.serve_forces import ForceServer
+    with pytest.raises(RuntimeError, match='cuda'):
+        ForceServer(BucketTable())
+    with pytest.raises(RuntimeError, match='cuda'):
+        ForceServer(BucketTable(), impl='jnp')
+    for impl in ('kernel', 'adjoint'):
+        with pytest.raises(RuntimeError, match='cuda'):
+            ops.make_batched_force_fn(_args()[0], 16, 12, impl=impl)
 
 
 def test_explicit_cpu_runs_plain_versions(no_card):
