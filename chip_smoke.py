@@ -45,7 +45,26 @@ injected kernel faults; and a timed open-loop run of 40 requests (sizes
 poisoned) with the launch counters set to 0 before and read after, the
 same at 400 requests for the tail, 400 clean requests offered at 5000 a
 second for the rate the service sustains, ms per batched step a bucket and
-a profile of one n2048 batched evaluation.  At
+a profile of one n2048 batched evaluation (the brute build's device time
+beside its bound).  The durability phase drives
+``repro_torch.launch.chaos.run_chaos_soak`` on the card: the reference's
+CI plan at 2J = 2 (8 requests, 25 % poisoned, kernel faults from the
+first step, crashes at dispatches 2 and 4, a 6-request burst; each step
+charged 0.25 s of virtual time so the burst sheds as behind the
+reference's interpret-mode steps) with its checks; then the tail run's
+schedule through the serving table (400 requests, crashes at dispatches
+60 and 180 with torn journal tails, a snapshot every 8 steps) with the
+launch counters set to 0 before and read after: the five invariants,
+three incarnations, every completed result bitwise equal to a fresh
+server's solo evaluation, one build a bucket an incarnation, no degraded
+step, one launch of each of U, Y, fused dE and the assembly in every
+batched step after a restore, and no host synchronization in a batched
+evaluation of replayed requests.  It times ``submit`` without and with a
+journal (fsync every 16 appends and every append, 128 and 2000 atoms),
+the tail and capacity runs without and with a journal in turns, a
+snapshot of a full result store (256 results), the soak's restores and a
+drain of a 16-request backlog; journals and snapshots go to a temporary
+directory.  At
 2J = 14 (float32) it holds the half and full kernels against their plain
 versions and times the half-plane pipeline (median of 5 evaluations after
 warm-up).
@@ -61,7 +80,9 @@ half-plane run's; cell-list kernel vs plain bitwise; device-loop drift
 rebuilds and its PE and Etot within 1e-9 relative of the scan loop's,
 split-run and rolled-back thermo rows bitwise equal to the straight run's;
 serving: the bars above by dtype, float32 (1e-5) for the solo request,
-the float32 adjoint and quarantine, batch peers vs solo bitwise.
+the float32 adjoint and quarantine, batch peers vs solo bitwise;
+durability: completed results vs solo evaluations bitwise, on both impl
+paths.
 Times are medians of CUDA-event timings after
 warm-up (``ms``: one call between two events, wrapper host time
 included) and, for each kernel and library call, device time alone
@@ -80,10 +101,13 @@ nonzero without the result line.  Without a card it exits nonzero and
 prints no result.
 """
 
+import collections
+import itertools
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -157,6 +181,16 @@ OPEN_N, OPEN_SIZES, OPEN_RATE, OPEN_BAD = 40, (128, 2000), 200.0, 0.15
 # the tail at the same rate, ~340 latencies (p99 is not the largest one);
 # capacity: the same number of clean requests offered above it
 TAIL_N, SATURATE_RATE = 400, 5000.0
+# the durability phase: the reference's CI soak (tests/test_durability.py,
+# 2J=2), each step charged SOAK_STEP_S of virtual time; the full-width soak
+# of the tail run's schedule, two crashes, a snapshot every 8 steps; submits
+# timed a size and journal setting, and the fsync settings
+SOAK_CI = dict(n_requests=8, seed=1, fraction_bad=0.25, kernel_fault_step=1,
+               crash_dispatches=(2, 4), overload_burst_at=0.05,
+               overload_burst_n=6, torn_tail=True)
+SOAK_STEP_S = 0.25
+SOAK_CRASHES, SOAK_SNAP_EVERY = (60, 180), 8
+JOURNAL_N, JOURNAL_FSYNC = 200, (16, 1)
 SMS = 132                    # H100 SXM
 STACK_MAX = 1024             # bytes of stack frame a fused dE kernel may use
 DEVICE_REPS = 20             # K of device_ms
@@ -1010,6 +1044,13 @@ def serve_request(rid, natoms, seed, a=3.1652, poison=False, beta_seed=None):
                         twojmax=8, rcut=RCUT)
 
 
+def default_serve_table():
+    """The serving table: snap-2j8's model class, SERVE_NPADS x
+    SERVE_LADDER, batch SERVE_BATCH."""
+    from repro_torch.launch.request_queue import BucketTable
+    return BucketTable(((8, RCUT),), SERVE_NPADS, SERVE_LADDER, SERVE_BATCH)
+
+
 def serve_fn(bucket, dev, dtype=torch.float32):
     """The batched kernel entry of ``bucket``, as the server builds it."""
     from repro_torch.core.snap import SnapConfig
@@ -1305,16 +1346,10 @@ def serve_service_checks(table, dev):
     return srv
 
 
-def open_loop(table, dev, n, rate, bad, tag):
-    """A fresh f32 server (queue at least as deep as the run) driven by
-    ``n`` requests, sizes drawn from seed 0, exponential arrivals at
-    ``rate`` a second, a ``bad`` share poisoned by ``RequestFaultPlan``;
-    the launch counters set to 0 before and read after.  Fails unless
-    every request ends typed as planned with no degradation.  Returns
-    (health, launch counts)."""
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve_forces import (ForceResult, ForceServer,
-                                                 run_open_loop)
+def open_loop_schedule(n, rate, bad, tag):
+    """``n`` requests ``tag``0 .. ``tag``(n-1), sizes drawn from seed 0,
+    exponential arrivals at ``rate`` a second, a ``bad`` share poisoned
+    by ``RequestFaultPlan``: (schedule, the plan's {index: kind})."""
     from repro_torch.md.fault_inject import RequestFaultPlan
     rng = np.random.default_rng(0)
     sizes = rng.choice(OPEN_SIZES, size=n)
@@ -1326,7 +1361,21 @@ def open_loop(table, dev, n, rate, bad, tag):
         schedule.append((float(arrivals[i]), serve_request(
             f'{tag}{i}', int(sizes[i]), 100 + i, poison=kind == 'nan_pos',
             a=SERVE_DENSE_A if kind == 'overflow' else 3.1652)))
-    ol = ForceServer(table, device=dev, queue_depth=max(n, 64))
+    return schedule, plan
+
+
+def open_loop(table, dev, n, rate, bad, tag, journal=None):
+    """A fresh f32 server (queue at least as deep as the run; ``journal``
+    a path or None) driven by :func:`open_loop_schedule`; the launch
+    counters set to 0 before and read after.  Fails unless every request
+    ends typed as planned with no degradation.  Returns (health, launch
+    counts, server)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_forces import (ForceResult, ForceServer,
+                                                 run_open_loop)
+    schedule, plan = open_loop_schedule(n, rate, bad, tag)
+    ol = ForceServer(table, device=dev, queue_depth=max(n, 64),
+                     journal=journal)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     h = run_open_loop(ol, schedule)
@@ -1341,16 +1390,18 @@ def open_loop(table, dev, n, rate, bad, tag):
           and all(r.impl == 'kernel' for r in served)
           and h.compile_counts == {f'{table.select(r).key}/kernel': 1
                                    for _, r in schedule},
-          f'serve open loop: {n} requests offered at {rate:g}/s, '
+          f'serve open loop{" (journal)" if journal else ""}: {n} '
+          f'requests offered at {rate:g}/s, '
           f'{len(plan)} poisoned: served {h.served}, failed {h.failed}, '
           f'{steps} batched steps, launches {counts}, degraded '
           f'{h.degraded_steps}, builds {h.compile_counts}')
-    print(f'     serve open loop ({n} requests offered at {rate:g}/s): '
+    print(f'     serve open loop{" with a journal" if journal else ""} '
+          f'({n} requests offered at {rate:g}/s): '
           f'p50 {h.p50_ms:.3f} ms, p99 {h.p99_ms:.3f} ms over {h.served} '
           f'latencies, {h.throughput_rps:.1f} req/s served over the run '
           f'({steps} steps, {h.served / steps:.2f} served a step)',
           flush=True)
-    return h, counts
+    return h, counts, ol
 
 
 def serve_timing(srv, table, batches, dev):
@@ -1365,14 +1416,14 @@ def serve_timing(srv, table, batches, dev):
     # every shared cache (libraries, tables, plans) is warm: srv served
     # both sizes; a fresh server times each run
     srv.evaluate(serve_request('warm', OPEN_SIZES[0], 99))
-    h, counts = open_loop(table, dev, OPEN_N, OPEN_RATE, OPEN_BAD, 'o')
+    h, counts, _ = open_loop(table, dev, OPEN_N, OPEN_RATE, OPEN_BAD, 'o')
     out = dict(p50_ms=h.p50_ms, p99_ms=h.p99_ms, rps=h.throughput_rps,
                steps=h.device_steps)
-    h, _ = open_loop(table, dev, TAIL_N, OPEN_RATE, OPEN_BAD, 't')
+    h, _, _ = open_loop(table, dev, TAIL_N, OPEN_RATE, OPEN_BAD, 't')
     out.update(tail_n=TAIL_N, tail_latencies=h.served, tail_p50_ms=h.p50_ms,
                tail_p99_ms=h.p99_ms, tail_rps=h.throughput_rps,
                tail_steps=h.device_steps)
-    h, _ = open_loop(table, dev, TAIL_N, SATURATE_RATE, 0.0, 's')
+    h, _, _ = open_loop(table, dev, TAIL_N, SATURATE_RATE, 0.0, 's')
     out.update(capacity_rps=h.throughput_rps, capacity_steps=h.device_steps,
                capacity_per_step=h.served / h.device_steps)
 
@@ -1411,15 +1462,27 @@ def serve_timing(srv, table, batches, dev):
     stage = {k: sum(us for name, (_, us) in per.items() if k in name) / reps
              / 1e3 for k in ('snap_u', 'snap_y', 'snap_fused_de',
                              'assemble_forces')}
-    build_ms, hidden_b = device_ms(lambda: cl.brute_neighbors_batched(
-        a['pos'], a['box'], RCUT, bucket.max_nbors, a['n_valid']), k=5)
+    build_args = (a['pos'], a['box'], RCUT, bucket.max_nbors, a['n_valid'])
+    build_ms, hidden_b = device_ms(
+        lambda: cl.brute_neighbors_batched(*build_args), k=5)
     eval_ms, hidden_e = device_ms(lambda: fn(**a), k=5)
+    # the build's bound: positions, boxes and counts read once, lists,
+    # masks, displacements and flags written once; 20 operations a pair
+    # of the B x n_pad^2 it tests (3 sub, 3 div, 3 round, 3 mul, 3 sub, 5
+    # for r2, 1 compare), f64
+    lists = cl.brute_neighbors_batched(*build_args)
+    pairs = a['pos'].shape[0] * a['pos'].shape[1] ** 2
+    build_bound, build_by = bound(
+        nbytes(a['pos'], a['box'], a['n_valid'], *lists), 20 * pairs,
+        a['pos'].dtype)
     out.update(build_device_ms=build_ms, eval_device_ms=eval_ms,
-               build_share=build_ms / eval_ms,
+               build_share=build_ms / eval_ms, build_bound_ms=build_bound,
+               build_bound_by=build_by,
                **{f'{k}_device_ms': v for k, v in stage.items()})
-    print(f'     serve n{bucket.n_pad}: brute build {build_ms:.4f} ms device, '
-          f'batched '
-          f'evaluation {eval_ms:.4f} ms device (build share '
+    print(f'     serve n{bucket.n_pad}: brute build {build_ms:.4f} ms device '
+          f'(bound {build_bound:.4f} ms by {build_by}: {pairs} pairs, '
+          f'{nbytes(a["pos"], a["box"], a["n_valid"], *lists) / 1e6:.3f} '
+          f'MB), batched evaluation {eval_ms:.4f} ms device (build share '
           f'{build_ms / eval_ms:.3f}; host hidden {hidden_b}/{hidden_e}); '
           'kernels in the profile: ' + ', '.join(
               f'{k} {v:.4f} ms' for k, v in stage.items()), flush=True)
@@ -1428,10 +1491,8 @@ def serve_timing(srv, table, batches, dev):
 
 def serve_phase(dev):
     """The batched force service at snap-2j8 (see the module docstring)."""
-    from repro_torch.launch.request_queue import BucketTable
     t0 = time.perf_counter()
-    table = BucketTable(((8, RCUT),), SERVE_NPADS, SERVE_LADDER,
-                        SERVE_BATCH)
+    table = default_serve_table()
     batches = serve_batches(table, dev)
     serve_neighbor_checks(batches)
     y_lanes = serve_kernel_checks(batches, dev)
@@ -1440,6 +1501,286 @@ def serve_phase(dev):
     print(f'     serve phase: {time.perf_counter() - t0:.1f} s wall',
           flush=True)
     return counts, numbers, y_lanes
+
+
+def step_cost_timer():
+    """A clock that advances SOAK_STEP_S a reading: each soak step lasts
+    that long, so every arrival and the burst of the CI plan land before
+    its first step ends and the bounded queue sheds, as behind the
+    reference's interpret-mode steps (the card's take milliseconds)."""
+    ticks = itertools.count()
+    return lambda: next(ticks) * SOAK_STEP_S
+
+
+def adjoint_bits(dev):
+    """The adjoint path (the quarantine path, ``impl='jnp'``) twice on the
+    same inputs: snap-2j8 in f64 and f32, and the serving table's batched
+    adjoint on an n128 batch; equal bits each time."""
+    from dataclasses import replace
+
+    from repro_torch.core.snap import SnapConfig, energy_forces_adjoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_forces import pack_batch
+    cfg, beta, _, _, nbr_idx, mask, disp = setup(8, dev)
+    args = device_inputs(disp, nbr_idx, mask, dev)
+    cases = {f'snap-2j8 {str(dt)[6:]}': (
+        lambda dt=dt: energy_forces_adjoint(replace(cfg, dtype=dt), beta,
+                                            0.0, *args, device=dev))
+        for dt in (torch.float64, torch.float32)}
+    table = default_serve_table()
+    reqs = [serve_request(f'adj{s}', OPEN_SIZES[0], s) for s in SERVE_SEEDS]
+    bucket = table.select(reqs[0])
+    arrays = pack_batch(bucket, reqs, dev)
+    fn = ops.make_batched_force_fn(
+        SnapConfig(twojmax=bucket.twojmax, rcut=bucket.rcut,
+                   dtype=torch.float32), bucket.n_pad, bucket.max_nbors,
+        impl='adjoint', device=dev)
+    cases[f'batched {bucket.key}'] = lambda: fn(**arrays)
+    for what, run in cases.items():
+        a, b = run(), run()
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        diff = max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(a, b))
+        check(same, f'durability: the adjoint path twice on the same inputs'
+              f' ({what}): bitwise equal (max abs diff {diff:.3e})')
+
+
+def soak_ci(dev, workdir):
+    """The reference's CI soak (tests/test_durability.py's plan, 2J=2,
+    its default table) on the card, with its checks."""
+    from repro_torch.launch.chaos import run_chaos_soak
+    from repro_torch.launch.journal import read_events
+    from repro_torch.md.fault_inject import ChaosPlan
+    rep = run_chaos_soak(ChaosPlan(**SOAK_CI), workdir, device=dev,
+                         timer=step_cost_timer())
+    impls = sorted({e['impl'] for e in read_events(workdir / 'journal.jsonl')
+                    if e['ev'] == 'completed'})
+    check(rep.ok and rep.crashes_fired == [2, 4] and rep.incarnations == 3
+          and rep.replayed_total > 0 and rep.bitwise_checked > 0
+          and bool(rep.quarantined) and rep.shed_or_rejected > 0
+          and len(rep.outcomes) == rep.n_requests
+          and 'LOST' not in rep.outcomes.values(),
+          f'durability: the reference\'s CI soak on the card (2J=2, '
+          f'{rep.n_requests} requests, crashes at dispatches '
+          f'{rep.crashes_fired}): invariants hold {rep.ok} '
+          f'({len(rep.violations)} violations {rep.violations[:4]}), '
+          f'{rep.incarnations} incarnations, {rep.replayed_total} replayed, '
+          f'{rep.bitwise_checked} completed results held bitwise against '
+          f'solo evaluations (impl {impls}), '
+          f'quarantined {rep.quarantined}, {rep.shed_or_rejected} shed, '
+          f'outcomes {dict(collections.Counter(rep.outcomes.values()))}')
+
+
+def replayed_requests(journal_path):
+    """The requests a restore re-admitted, rebuilt from their journaled
+    payloads."""
+    from repro_torch.launch.journal import read_events, unpack_array
+    from repro_torch.launch.request_queue import ForceRequest
+    out = []
+    for e in read_events(journal_path):
+        if e['ev'] == 'accepted' and e.get('replayed'):
+            p = e['req']
+            out.append(ForceRequest(
+                e['req_id'], pos=unpack_array(p['pos']),
+                box=unpack_array(p['box']), beta=unpack_array(p['beta']),
+                twojmax=p['twojmax'], rcut=p['rcut'], beta0=p['beta0']))
+    return out
+
+
+def soak_wide(table, dev, workdir):
+    """The soak at full width: the tail run's schedule (snap-2j8 requests
+    of 128 and 2000 atoms, 200 a second, 15 % poisoned) through the
+    serving table, two crashes with torn tails, a snapshot every
+    SOAK_SNAP_EVERY steps; the launch counters set to 0 before and read
+    after, each batched step's launches recorded with the incarnation that
+    ran it.  Returns (launch counts, numbers)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.chaos import run_chaos_soak
+    from repro_torch.launch.serve_forces import ForceServer, pack_batch
+    from repro_torch.md.fault_inject import ChaosPlan
+    schedule, bad = open_loop_schedule(TAIL_N, OPEN_RATE, OPEN_BAD, 'd')
+    plan = ChaosPlan(kernel_fault_step=None, crash_dispatches=SOAK_CRASHES,
+                     torn_tail=True)
+    steps = []                   # (server, impl, launches of the step)
+    run = ForceServer._run
+
+    def recorded(srv, bucket, impl, arrays):
+        before = ops.launch_counts()
+        res = run(srv, bucket, impl, arrays)
+        after = ops.launch_counts()
+        steps.append((srv, impl, {k: after[k] - before[k] for k in after}))
+        return res
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with mock.patch.object(ForceServer, '_run', recorded):
+        rep = run_chaos_soak(plan, workdir, table=table, device=dev,
+                             queue_depth=TAIL_N,
+                             snapshot_every=SOAK_SNAP_EVERY,
+                             schedule=(schedule, bad))
+    counts = ops.launch_counts()
+    want = {k: int(k in PATHS['serve']) for k in counts}
+    # the journaled servers in order: the first life, then each restore's
+    lives = list(dict.fromkeys(s for s, _, _ in steps
+                               if s._journal is not None))
+    after_restore = [d for s, _, d in steps if s in lives[1:]]
+    n_kernel = sum(impl == 'kernel' for _, impl, _ in steps)
+    expect = {req.req_id: 'failed' if i in bad else 'completed'
+              for i, (_, req) in enumerate(schedule)}
+    n_done = sum(v == 'completed' for v in rep.outcomes.values())
+    check(rep.ok and rep.incarnations == 3 and len(lives) == 3
+          and rep.crashes_fired == list(SOAK_CRASHES)
+          and rep.replayed_total > 0 and rep.outcomes == expect
+          and rep.bitwise_checked == n_done > 0,
+          f'durability: full-width soak ({len(schedule)} snap-2j8 requests '
+          f'at {OPEN_RATE:g}/s, {len(bad)} poisoned, crashes at dispatches '
+          f'{rep.crashes_fired}, torn tails, a snapshot every '
+          f'{SOAK_SNAP_EVERY} steps): invariants hold {rep.ok} '
+          f'({len(rep.violations)} violations {rep.violations[:4]}), '
+          f'{rep.incarnations} incarnations, '
+          f'{rep.replayed_total} replayed, outcomes as planned '
+          f'{rep.outcomes == expect}, {rep.bitwise_checked} of {n_done} '
+          f'completed results bitwise equal to a fresh server\'s solo '
+          f'evaluation on the card')
+    builds = [s.health().compile_counts for s in lives]
+    health = [s.health() for s in lives]
+    check(all(c and set(c.values()) == {1}
+              and all(k.endswith('/kernel') for k in c) for c in builds)
+          and all(h.degraded_steps == 0 and not h.kernel_faults
+                  for h in health),
+          f'durability: one build a bucket in each incarnation {builds}; '
+          f'degraded steps {[h.degraded_steps for h in health]}')
+    check(len(after_restore) > 0
+          and all(d == want for d in after_restore)
+          and all(impl == 'kernel' for _, impl, _ in steps)
+          and counts == {k: n_kernel * want[k] for k in counts},
+          f'durability: {len(after_restore)} batched steps after a restore, '
+          f'each launched one of each of U, Y, fused dE and the assembly '
+          f'({sum(d == want for d in after_restore)} did); the soak\'s '
+          f'{n_kernel} kernel-path steps (with the bitwise check\'s solo '
+          f'evaluations) launched {counts}')
+    # a batch of replayed requests on the last life's batched function:
+    # no host synchronization
+    reqs = replayed_requests(workdir / 'journal.jsonl')
+    bucket = table.select(reqs[0])
+    reqs = [r for r in reqs if table.select(r) == bucket][:SERVE_BATCH]
+    fn = lives[-1]._fn(bucket, 'kernel')
+    arrays = pack_batch(bucket, reqs, dev)
+    fn(**arrays)
+    err = syncs(lambda: fn(**arrays))
+    check(err is None, f'durability: no host synchronization in a batched '
+          f'evaluation of {len(reqs)} replayed requests ({bucket.key}) on '
+          f'the restored server\'s function ({err or "none raised"})')
+    out = dict(soak_requests=len(schedule), recovery_s=rep.recovery_s,
+               replayed=rep.replayed_total, incarnations=rep.incarnations,
+               journal_events=rep.journal_events, served=rep.served,
+               failed=rep.failed, bitwise_checked=rep.bitwise_checked,
+               steps_after_restore=len(after_restore))
+    print(f'     durability soak: restore {rep.recovery_s * 1e3:.3f} ms for '
+          f'{rep.incarnations - 1} restores ({rep.replayed_total} requests '
+          f'replayed), {rep.journal_events} journal events, served '
+          f'{rep.served}, failed {rep.failed}', flush=True)
+    return counts, out
+
+
+def journal_cost(table, dev, tmp):
+    """Host time of ``submit`` (us, p50 and p99 of JOURNAL_N) for 128- and
+    2000-atom requests without a journal and with one fsynced every 16
+    appends and every append; the bytes of an ``accepted`` event."""
+    from repro_torch.launch.journal import Journal
+    from repro_torch.launch.serve_forces import ForceServer
+    out = {}
+    for natoms in OPEN_SIZES:
+        reqs = [serve_request(f'j{natoms}-{i}', natoms, 200 + i)
+                for i in range(JOURNAL_N)]
+        for fsync in (None,) + JOURNAL_FSYNC:
+            path = tmp / f'submit-{natoms}-{fsync}.jsonl'
+            journal = None if fsync is None else Journal(path, fsync)
+            srv = ForceServer(table, device=dev, queue_depth=JOURNAL_N,
+                              journal=journal)
+            times = []
+            for r in reqs:
+                t0 = time.perf_counter()
+                srv.submit(r)
+                times.append((time.perf_counter() - t0) * 1e6)
+            tag = f'n{natoms}_' + ('none' if fsync is None
+                                   else f'fsync{fsync}')
+            out[f'submit_us_{tag}'] = [float(np.percentile(times, 50)),
+                                       float(np.percentile(times, 99))]
+            if journal is not None:
+                journal.close()
+                out[f'accepted_bytes_n{natoms}'] = \
+                    path.stat().st_size / JOURNAL_N
+            print(f'     submit {natoms} atoms, journal '
+                  f'{"none" if fsync is None else f"fsync every {fsync}"}: '
+                  f'p50 {out[f"submit_us_{tag}"][0]:.1f} us, p99 '
+                  f'{out[f"submit_us_{tag}"][1]:.1f} us ({JOURNAL_N} '
+                  f'submits)', flush=True)
+        print(f'     accepted event, {natoms} atoms: '
+              f'{out[f"accepted_bytes_n{natoms}"]:.0f} bytes', flush=True)
+    return out
+
+
+def durability_timing(table, dev, tmp):
+    """The journal's cost per submit; the tail and capacity runs without
+    and with a journal in turns (without, with, with, without); snapshot
+    of a full result store; drain of a 16-request backlog."""
+    from repro_torch.launch.serve_forces import ForceServer
+    out = journal_cost(table, dev, tmp)
+    journaled_servers = []
+    for name, rate, bad in (('tail', OPEN_RATE, OPEN_BAD),
+                            ('capacity', SATURATE_RATE, 0.0)):
+        for k, journaled in enumerate((False, True, True, False)):
+            jp = tmp / f'{name}{k}.jsonl' if journaled else None
+            h, _, srv = open_loop(table, dev, TAIL_N, rate, bad,
+                                  f'{name[0]}{k}-', journal=jp)
+            key = f'{name}_{"journal" if journaled else "none"}'
+            out.setdefault(key, []).append(dict(
+                p50_ms=h.p50_ms, p99_ms=h.p99_ms, rps=h.throughput_rps))
+            if journaled:
+                journaled_servers.append(srv)
+    # snapshot of the last journaled capacity server (its store is full)
+    srv = journaled_servers[-1]
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        srv.snapshot(tmp / 'snap')
+        times.append((time.perf_counter() - t0) * 1e3)
+    depth = srv.health().store_depth
+    out.update(snapshot_ms=statistics.median(times), snapshot_results=depth)
+    print(f'     snapshot of {depth} results: {out["snapshot_ms"]:.3f} ms '
+          f'(median of 3)', flush=True)
+    for srv in journaled_servers:
+        srv._journal.close()
+    # drain: a backlog of 8 + 8 requests, served, then a final snapshot
+    srv = ForceServer(table, device=dev, journal=str(tmp / 'drain.jsonl'))
+    for i in range(16):
+        srv.submit(serve_request(f'dr{i}', OPEN_SIZES[i % 2], 300 + i))
+    t0 = time.perf_counter()
+    h = srv.drain(deadline=1e9, snapshot_dir=tmp / 'drain_snap')
+    out['drain_ms'] = (time.perf_counter() - t0) * 1e3
+    check(h.draining and h.queue_depth == 0 and h.served == 16,
+          f'durability: drain served the backlog ({h.served} of 16) and '
+          f'wrote its snapshot in {out["drain_ms"]:.3f} ms')
+    srv._journal.close()
+    return out
+
+
+def durability_phase(dev):
+    """The service's durability half at snap-2j8 width (see the module
+    docstring).  Returns (launch counts of the full-width soak, numbers).
+    Journals and snapshots go to a temporary directory."""
+    t0 = time.perf_counter()
+    table = default_serve_table()
+    adjoint_bits(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        soak_ci(dev, tmp / 'ci')
+        counts, out = soak_wide(table, dev, tmp / 'wide')
+        out.update(durability_timing(table, dev, tmp))
+    out.update(phase_s=time.perf_counter() - t0, card=card_identity())
+    print(f'     durability phase: {out["phase_s"]:.1f} s wall on '
+          f'{out["card"]}', flush=True)
+    return counts, out
 
 
 def big_phase(dev):
@@ -1507,6 +1848,8 @@ def main():
     runs['device'] = device_loop_phase(cfg, beta, pos, box, dev)
     serve_counts, serve_numbers, y_lanes = serve_phase(dev)
     print('serve: ' + json.dumps(serve_numbers), flush=True)
+    durable_counts, durable_numbers = durability_phase(dev)
+    print('durability: ' + json.dumps(durable_numbers), flush=True)
     pe = {p: runs[p][1][-1]['pe'] for p in ('half', 'full')}
     d_pe = abs(pe['full'] - pe['half']) / abs(pe['half'])
     check(d_pe <= MD_PE_TOL, f'md: full-plane PE at step {MD_STEPS} '
@@ -1526,7 +1869,8 @@ def main():
                      replaces=replaces, launches=runs[path][0][name], **top,
                      dtype=dt, path=path,
                      launches_device_loop=runs['device'][0][name],
-                     launches_serve=serve_counts[name])
+                     launches_serve=serve_counts[name],
+                     launches_durability=durable_counts[name])
         other, sfx = ((torch.float32, 'f32') if dt == 'float64'
                       else (torch.float64, 'f64'))
         entry.update({f'{k}_{sfx}': v

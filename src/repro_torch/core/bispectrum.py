@@ -2,8 +2,10 @@
 
 Port of ``repro.core.bispectrum``: the irregular triple loops of LAMMPS
 ``compute_zi`` / ``compute_bi`` / ``compute_yi`` as COO gather /
-scatter-add (``index_add_``) over the static tables of
-:mod:`repro_torch.core.indices`, vectorized over atoms.
+scatter-add (:func:`_add_columns`) over the static tables of
+:mod:`repro_torch.core.indices`, vectorized over atoms.  Each destination
+sums its terms in a fixed order on every device, so two evaluations of
+the same inputs give the same bits.
 
 ``compute_ylist`` fuses the Z product with the beta-weighted accumulation,
 so Z is never stored (the paper's adjoint refactorization).
@@ -27,6 +29,19 @@ def _long(a, device):
     return torch.as_tensor(a, dtype=torch.long, device=device)
 
 
+def _add_columns(out, dest, src):
+    """out[:, dest[k]] += src[:, k], each destination's terms added in the
+    order of k.  ``index_add_`` does that on the CPU, but on the card it
+    adds with atomics, in an order that changes from call to call; there
+    ``index_put_(accumulate=True)`` sorts the terms by destination
+    (stably) and adds each destination's run in order."""
+    if out.device.type == 'cpu':
+        out.index_add_(1, dest, src)
+    else:
+        out.T.index_put_((dest,), src.T, accumulate=True)
+    return out
+
+
 def _chunked_scatter_products(ut, src1, src2, coef, dest, out_width,
                               nchunk=None):
     """out[n, dest] += coef * ut[n, src1] * ut[n, src2], chunked over the
@@ -46,7 +61,7 @@ def _chunked_scatter_products(ut, src1, src2, coef, dest, out_width,
             continue
         prod = (ut[:, _long(src1[lo:hi], dev)] * ut[:, _long(src2[lo:hi], dev)]
                 * coef[..., lo:hi].to(ut.real.dtype))
-        out.index_add_(1, _long(dest[lo:hi], dev), prod)
+        _add_columns(out, _long(dest[lo:hi], dev), prod)
     return out
 
 
@@ -70,7 +85,7 @@ def compute_blist(ulisttot, zlist, idx: SnapIndex, bzero_flag=True):
     w = torch.as_tensor(idx.b_coo_w, dtype=rdt, device=dev)
     contrib = w * (u.real * z.real + u.imag * z.imag)
     b = torch.zeros((ulisttot.shape[0], idx.idxb_max), dtype=rdt, device=dev)
-    b = b.index_add(1, _long(idx.b_coo_dest, dev), contrib)
+    b = _add_columns(b, _long(idx.b_coo_dest, dev), contrib)
     if bzero_flag:
         shift = np.array([idx.bzero[t[2]] for t in idx.idxb_triples])
         b = b - torch.as_tensor(shift, dtype=rdt, device=dev)

@@ -1,10 +1,8 @@
 """SNAP force evaluation as a service: a request queue in front of the
 batched force entry.
 
-Port of ``repro.launch.serve_forces`` without its durability half: the
-journal, ``drain``, ``snapshot``, ``_load_snapshot`` and ``restore`` (with
-``DuplicateRequestError``'s journal replay and ``ServiceDrainingError``'s
-drain) wait for ROADMAP Queue A item 2.
+Port of ``repro.launch.serve_forces``, with its durability half: the
+write-ahead journal, ``drain``, ``snapshot`` and ``restore``.
 
 Pipeline of one request:
 
@@ -49,15 +47,31 @@ Robustness contract (the reference's):
   of the kernel path (a kernel that fails to build or launch) is not
   caught: it raises out of :meth:`ForceServer.step`, so a broken kernel
   can never hide behind the adjoint path.
+- **Durability**: with a :class:`~repro_torch.launch.journal.Journal`
+  attached, every admitted request is journaled ``accepted`` (payload
+  included) before ``submit`` returns its ack, and every terminal outcome
+  is journaled before it is stored — so :meth:`ForceServer.restore` can
+  rebuild a crashed server from (snapshot, journal tail) with every
+  acked, non-terminal request re-admitted exactly once (idempotent by
+  ``req_id``) and quarantine/strike knowledge intact.  An exception that
+  leaves :meth:`ForceServer.step` (a crash) abandons the dequeued batch:
+  its requests have no terminal event, so a restore replays them.
 - **Bounded memory**: terminal outcomes live in a capacity-bounded
   :class:`ResultStore` and latencies in a fixed-size
   :class:`LatencyReservoir`.
+- **Graceful lifecycle**: :meth:`ForceServer.drain` closes admission
+  (typed :class:`~repro_torch.launch.request_queue.ServiceDrainingError`),
+  serves the backlog until a deadline, fails the remainder with deadline
+  errors, and writes a final snapshot.
 
 Wire names are the reference's: bucket keys, and the impl names
-``'kernel'`` and ``'jnp'`` in results and ``compile_counts`` — ``'jnp'``
-names the adjoint path (``impl='adjoint'`` of the batched entry), the
-reference's jnp pipeline.  ``compile_counts`` counts builds of each
-bucket's batched function.
+``'kernel'`` and ``'jnp'`` in results, journal events and
+``compile_counts`` — ``'jnp'`` names the adjoint path (``impl='adjoint'``
+of the batched entry), the reference's jnp pipeline.  ``compile_counts``
+counts builds of each bucket's batched function.  Journals and snapshots
+have the reference's formats (:data:`SNAPSHOT_KIND`), so either package
+restores the other's; ``device_steps`` and ``compile_counts`` count within
+one incarnation and are not persisted.
 """
 
 from __future__ import annotations
@@ -76,13 +90,21 @@ from ..kernels.ops import make_batched_force_fn
 from ..md.fault_inject import KernelPathFault
 from ..md.neighbor import suggest_capacity
 from ..md.resilience import lane_health
-from .request_queue import (Bucket, BucketTable, DeadlineExceededError,
-                            DuplicateRequestError, ForceRequest, QueueEntry,
-                            RequestFailedError, RequestQueue,
-                            RequestRejectedError, ServiceError)
+from ..runtime import checkpoint as ckpt
+from .journal import (Journal, forces_digest, pack_array, read_events,
+                      unpack_array)
+from .journal import _jsonable as _json_safe
+from .journal import replay as replay_journal
+from .request_queue import (ERROR_TYPES, Bucket, BucketTable,
+                            DeadlineExceededError, DuplicateRequestError,
+                            ForceRequest, QueueEntry, RequestFailedError,
+                            RequestQueue, RequestRejectedError,
+                            ServiceDrainingError, ServiceError)
 
 # the reference's impl names -> make_batched_force_fn's
 IMPLS = {'kernel': 'kernel', 'jnp': 'adjoint'}
+
+SNAPSHOT_KIND = 'force_server_v1'
 
 
 class ResultStore:
@@ -113,6 +135,10 @@ class ResultStore:
     def acked(self, req_id: str) -> bool:
         v = self._d.get(req_id)
         return bool(v is not None and v[1])
+
+    def items(self):
+        """(req_id, outcome, acked) in insertion (oldest-first) order."""
+        return [(rid, out, ack) for rid, (out, ack) in self._d.items()]
 
     def __len__(self) -> int:
         return len(self._d)
@@ -177,6 +203,9 @@ class ServiceHealth:
     store_depth: int = 0                 # bounded result-store occupancy
     store_evicted: int = 0               # outcomes evicted at capacity
     device_steps: int = 0                # batched evaluations run
+    journal_seq: int = 0                 # last journaled event (0 = none)
+    replayed: int = 0                    # requests re-admitted by restore
+    draining: bool = False
 
     def summary(self) -> Dict:
         return dict(self.__dict__)
@@ -219,7 +248,9 @@ class ForceServer:
     clock, so tests and the open-loop runner stay deterministic.
     ``dtype``: the kernel path's working type and the adjoint path's
     ``SnapConfig.dtype``.  ``force_kwargs`` go to the kernel path
-    (``layout``, ``mxu_dtype``).
+    (``layout``, ``mxu_dtype``).  ``journal``: a
+    :class:`~repro_torch.launch.journal.Journal` or its path (None: no
+    durability).
     """
 
     def __init__(self, table: BucketTable, impl: str = 'kernel',
@@ -228,6 +259,7 @@ class ForceServer:
                  dtype=torch.float32, device='cuda',
                  fault_hook: Optional[Callable] = None,
                  force_kwargs: Optional[Dict] = None,
+                 journal: Optional[Union[Journal, str]] = None,
                  result_cap: int = 256, latency_reservoir: int = 512):
         if impl not in IMPLS:
             raise ValueError(f'unknown impl {impl!r}; choose from '
@@ -242,6 +274,9 @@ class ForceServer:
         self.fault_hook = fault_hook
         self.force_kwargs = dict(force_kwargs or {})
         self.queue = RequestQueue(max_depth=queue_depth)
+        self._journal: Optional[Journal] = (
+            journal if isinstance(journal, Journal) or journal is None
+            else Journal(journal))
         self._fns: Dict[Tuple[Bucket, str], Callable] = {}
         self._trace_counts: Dict[Tuple[str, str], Dict] = {}
         self._ncoeff: Dict[int, int] = {}
@@ -250,6 +285,8 @@ class ForceServer:
         self._inflight: Dict[str, QueueEntry] = {}
         self._kernel_faults: Dict[str, int] = {}
         self._quarantined: set = set()
+        self._draining = False
+        self._replayed = 0
         self._step_idx = 0
         self._device_steps = 0
         self._served = 0
@@ -268,9 +305,15 @@ class ForceServer:
         ``result()`` see the same typed object).
 
         Resubmission is idempotent by ``req_id``: while the original is
-        in flight a typed :class:`DuplicateRequestError` is raised; after
-        an *accepted* request reached its terminal outcome, resubmitting
-        returns its bucket without re-enqueueing.
+        in flight a typed :class:`DuplicateRequestError` is raised (and
+        the in-flight request is untouched); after an *accepted* request
+        reached its terminal outcome, resubmitting returns its bucket
+        without re-enqueueing and ``result()`` keeps the stored outcome.
+        Admission-time rejects/sheds were never acked, so those ids may
+        be resubmitted fresh.  While draining, a typed
+        :class:`ServiceDrainingError` is raised (and recorded, not acked).
+        With a journal attached, the ``accepted`` event is appended before
+        ``submit`` returns — the ack is durable.
         """
         rid = req.req_id
         if rid in self._inflight:
@@ -280,12 +323,23 @@ class ForceServer:
                      bucket=self._inflight[rid].bucket.key))
         if self._store.acked(rid):
             return self.table.select(req)  # idempotent: keep the outcome
+        if self._draining:
+            err = ServiceDrainingError(
+                'server is draining; admission closed', dict(
+                    req_id=rid, now=round(now, 6)))
+            self._store.put(rid, err, acked=False)
+            self._failed += 1
+            raise err
         deadline = (None if req.deadline_s is None
                     else now + float(req.deadline_s))
         return self._admit(req, now, deadline)
 
     def _admit(self, req: ForceRequest, now: float,
-               deadline_abs: Optional[float]) -> Bucket:
+               deadline_abs: Optional[float], retries: int = 0,
+               replayed: bool = False) -> Bucket:
+        """Admission core shared by :meth:`submit` and journal replay
+        (replay keeps the original absolute deadline and retry count,
+        clamped to ``max_retries``, instead of restarting them)."""
         try:
             bucket = self.table.select(req)
             ncoeff = self._ncoeff_for(bucket.twojmax)
@@ -300,13 +354,32 @@ class ForceServer:
                          and np.isfinite(req.beta0))
             entry = QueueEntry(req=req, bucket=bucket, arrival=now,
                                deadline_abs=deadline_abs,
-                               input_clean=clean, not_before=now)
+                               input_clean=clean,
+                               retries=min(int(retries), self.max_retries),
+                               not_before=now)
             self.queue.submit(entry, now)
         except ServiceError as err:
-            self._store.put(req.req_id, err, acked=False)
+            # a *replayed* request was acked in a previous life, so an
+            # admission failure now is its terminal outcome and must
+            # reach the journal (else the ack would look lost)
+            self._store.put(req.req_id, err, acked=replayed)
             self._failed += 1
+            if replayed and self._journal is not None:
+                self._journal.append('failed', req.req_id, t=now,
+                                     error=type(err).__name__,
+                                     message=str(err))
             raise
         self._inflight[req.req_id] = entry
+        if self._journal is not None:
+            self._journal.append(
+                'accepted', req.req_id, t=now, bucket=bucket.key,
+                deadline_abs=deadline_abs, replayed=replayed,
+                req=dict(pos=pack_array(req.pos),
+                         box=pack_array(req.box),
+                         beta=pack_array(req.beta),
+                         twojmax=req.twojmax, rcut=req.rcut,
+                         beta0=req.beta0, deadline_s=req.deadline_s,
+                         max_nbors_hint=req.max_nbors_hint))
         if self._first_arrival is None or now < self._first_arrival:
             self._first_arrival = now
         return bucket
@@ -434,6 +507,10 @@ class ForceServer:
                     * (2.0 ** (entry.retries - 1))
                 self.queue.requeue(entry)
                 self._retries_scheduled += 1
+                if self._journal is not None:
+                    self._journal.append('requeued', req.req_id,
+                                         retries=entry.retries,
+                                         not_before=entry.not_before)
                 return []
             err = RequestFailedError(
                 'numeric fault persisted through retries', dict(
@@ -450,6 +527,19 @@ class ForceServer:
     def _finish(self, entry: QueueEntry, outcome, end: float):
         rid = entry.req.req_id
         self._inflight.pop(rid, None)
+        if self._journal is not None:
+            # journal before store: a crash between the two re-derives
+            # the store from the journal, never the other way round
+            if isinstance(outcome, ForceResult):
+                self._journal.append(
+                    'completed', rid, t=end, impl=outcome.impl,
+                    energy=outcome.energy,
+                    forces_sha=forces_digest(outcome.forces),
+                    latency=outcome.latency, retries=outcome.retries)
+            else:
+                self._journal.append(
+                    'failed', rid, t=end,
+                    error=type(outcome).__name__, message=str(outcome))
         self._store.put(rid, outcome, acked=True)
         if isinstance(outcome, ForceResult):
             self._served += 1
@@ -459,6 +549,168 @@ class ForceServer:
         if self._last_completion is None or end > self._last_completion:
             self._last_completion = end
         return outcome
+
+    # -- lifecycle: drain, snapshot, restore -------------------------------
+
+    def drain(self, deadline: float, now: float = 0.0,
+              timer: Callable[[], float] = time.perf_counter,
+              snapshot_dir=None, max_steps: int = 100000) -> ServiceHealth:
+        """Graceful shutdown: close admission (subsequent submits raise
+        :class:`ServiceDrainingError`), serve the backlog until the
+        absolute ``deadline`` (same clock as ``now``), fail whatever is
+        left with :class:`DeadlineExceededError`, then write a final
+        snapshot (if ``snapshot_dir``) and sync the journal.  Every
+        backlog request reaches exactly one terminal outcome."""
+        self._draining = True
+        for _ in range(max_steps):
+            if self.queue.depth == 0 or now >= deadline:
+                break
+            done, dt = self.step(now, timer=timer)
+            if dt > 0 or done:
+                now += max(dt, 1e-9)
+                continue
+            nxt = self.queue.next_eligible_time()
+            if nxt is None or nxt >= deadline:
+                break                     # backlog is all beyond deadline
+            now = max(now + 1e-9, nxt)
+        remainder, self.queue.entries = self.queue.entries, []
+        for e in remainder:
+            err = DeadlineExceededError(
+                'drain deadline reached before service', dict(
+                    req_id=e.req.req_id, deadline=round(deadline, 6),
+                    now=round(now, 6), retries=e.retries))
+            self._deadline_missed += 1
+            self._finish(e, err, now)
+        if snapshot_dir is not None:
+            self.snapshot(snapshot_dir, now=now)
+        if self._journal is not None:
+            self._journal.sync()
+        return self.health()
+
+    def snapshot(self, ckpt_dir, now: float = 0.0) -> None:
+        """Crash-safe server-state snapshot on the
+        :mod:`repro_torch.runtime.checkpoint` leaf format (the reference's
+        schema): quarantine set, strike counts, counters, the bounded
+        result store (forces as leaves ``forces.0``, ``forces.1``, ...)
+        and the latency reservoir.  The journal is fsynced first so a
+        snapshot is never *ahead* of the journal."""
+        if self._journal is not None:
+            self._journal.sync()
+        results_meta: List[Dict] = []
+        forces_leaves: List[np.ndarray] = []
+        for rid, outcome, acked in self._store.items():
+            m: Dict = dict(req_id=rid, acked=bool(acked))
+            if isinstance(outcome, ForceResult):
+                m.update(kind='result', energy=float(outcome.energy),
+                         latency=float(outcome.latency),
+                         bucket_key=outcome.bucket_key,
+                         impl=outcome.impl, retries=int(outcome.retries),
+                         forces_leaf=len(forces_leaves))
+                forces_leaves.append(np.asarray(outcome.forces))
+            else:
+                m.update(kind='error', error=type(outcome).__name__,
+                         message=str(outcome),
+                         diagnostics=_json_safe(
+                             getattr(outcome, 'diagnostics', {})))
+            results_meta.append(m)
+        tree = dict(forces=forces_leaves,
+                    reservoir=np.asarray(self._reservoir.values, float))
+        extra = dict(
+            kind=SNAPSHOT_KIND, now=float(now),
+            journal_seq=self._journal.seq if self._journal else 0,
+            quarantined=sorted(self._quarantined),
+            kernel_faults={k: int(v)
+                           for k, v in self._kernel_faults.items()},
+            results=results_meta,
+            counters=dict(served=self._served, failed=self._failed,
+                          deadline_missed=self._deadline_missed,
+                          retries_scheduled=self._retries_scheduled,
+                          degraded_steps=self._degraded_steps,
+                          step_idx=self._step_idx,
+                          shed_count=self.queue.shed_count,
+                          store_evicted=self._store.evicted,
+                          reservoir_count=self._reservoir.count,
+                          replayed=self._replayed))
+        ckpt.save(ckpt_dir, tree, step=self._step_idx, extra=extra)
+
+    def _load_snapshot(self, ckpt_dir) -> None:
+        leaves, manifest = ckpt.restore_named(ckpt_dir)
+        extra = manifest['extra']
+        if extra.get('kind') != SNAPSHOT_KIND:
+            raise ValueError(f'not a force-server snapshot: '
+                             f'{extra.get("kind")!r}')
+        self._quarantined = set(extra['quarantined'])
+        self._kernel_faults = {k: int(v)
+                               for k, v in extra['kernel_faults'].items()}
+        c = extra['counters']
+        self._served = int(c['served'])
+        self._failed = int(c['failed'])
+        self._deadline_missed = int(c['deadline_missed'])
+        self._retries_scheduled = int(c['retries_scheduled'])
+        self._degraded_steps = int(c['degraded_steps'])
+        self._step_idx = int(c['step_idx'])
+        self._replayed = int(c.get('replayed', 0))
+        self.queue.shed_count = int(c['shed_count'])
+        self._store.evicted = int(c['store_evicted'])
+        self._reservoir.values = [float(x)
+                                  for x in leaves.get('reservoir', [])]
+        self._reservoir.count = int(c['reservoir_count'])
+        for m in extra['results']:
+            if m['kind'] == 'result':
+                outcome: Union[ForceResult, ServiceError] = ForceResult(
+                    req_id=m['req_id'], energy=float(m['energy']),
+                    forces=np.asarray(leaves[f'forces.{m["forces_leaf"]}']),
+                    latency=float(m['latency']),
+                    bucket_key=m['bucket_key'], impl=m['impl'],
+                    retries=int(m['retries']))
+            else:
+                errcls = ERROR_TYPES.get(m['error'], ServiceError)
+                outcome = errcls(m['message'])
+                outcome.diagnostics = dict(m.get('diagnostics', {}))
+            self._store.put(m['req_id'], outcome, acked=m['acked'])
+
+    @classmethod
+    def restore(cls, table: BucketTable, journal, snapshot=None,
+                now: float = 0.0, **kwargs) -> 'ForceServer':
+        """Rebuild a crashed server from its journal (path or
+        :class:`~repro_torch.launch.journal.Journal`) plus an optional
+        state snapshot directory; ``kwargs`` go to the constructor
+        (``device`` defaults to the card, as there).
+
+        The snapshot restores quarantine/strike knowledge, counters and
+        the bounded result store; the journal tail is then replayed so
+        every journaled-``accepted`` request without a terminal event is
+        re-admitted **exactly once** (idempotent by ``req_id`` — replay
+        re-admissions are themselves journaled, and repeated restores
+        collapse onto the first terminal outcome).  Original absolute
+        deadlines and retry counts are kept, so an outage consumes a
+        request's deadline rather than silently extending it."""
+        srv = cls(table, journal=journal, **kwargs)
+        if snapshot is not None:
+            srv._load_snapshot(snapshot)
+        state = replay_journal(read_events(srv._journal.path))
+        replayed = 0
+        for rec in state.pending:
+            if srv._store.acked(rec.req_id) or rec.req_id in srv._inflight:
+                continue                  # snapshot already terminal
+            ev = rec.accepted
+            p = ev['req']
+            req = ForceRequest(
+                req_id=rec.req_id, pos=unpack_array(p['pos']),
+                box=unpack_array(p['box']),
+                beta=unpack_array(p['beta']),
+                twojmax=int(p['twojmax']), rcut=float(p['rcut']),
+                beta0=float(p['beta0']), deadline_s=p.get('deadline_s'),
+                max_nbors_hint=p.get('max_nbors_hint'))
+            try:
+                srv._admit(req, now, ev.get('deadline_abs'),
+                           retries=rec.requeues, replayed=True)
+            except ServiceError:
+                pass                      # typed + recorded in the store
+            else:
+                replayed += 1
+        srv._replayed = replayed
+        return srv
 
     # -- convenience / introspection --------------------------------------
 
@@ -507,6 +759,9 @@ class ForceServer:
             store_depth=len(self._store),
             store_evicted=self._store.evicted,
             device_steps=self._device_steps,
+            journal_seq=self._journal.seq if self._journal else 0,
+            replayed=self._replayed,
+            draining=self._draining,
         )
 
 

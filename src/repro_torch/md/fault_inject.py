@@ -1,13 +1,14 @@
 """Deterministic fault injection for the resilient MD device loop and the
 force service.
 
-Port of ``repro.md.fault_inject`` but for ``ChaosPlan``, which waits for
-the chaos soak (ROADMAP Queue A item 2).  The request faults
+Port of ``repro.md.fault_inject``.  The request faults
 (:class:`KernelPathFault`, :func:`poison_request_positions`,
 :class:`RequestFaultPlan`, :class:`ServeFault`,
 :class:`ServeFaultInjector`) drive
-:class:`repro_torch.launch.serve_forces.ForceServer`; the rest of this
-docstring is about the MD faults.  The device loop calls its ``fault_hook`` once per chunk boundary, after
+:class:`repro_torch.launch.serve_forces.ForceServer`, and
+:class:`ChaosPlan` composes them with crashes for the chaos soak
+(:mod:`repro_torch.launch.chaos`); the rest of this docstring is about
+the MD faults.  The device loop calls its ``fault_hook`` once per chunk boundary, after
 keeping the last-good carry but *before* launching the chunk — so an
 injected fault corrupts exactly one chunk attempt and the rollback target
 stays clean:
@@ -177,6 +178,55 @@ class ServeFault:
     def __post_init__(self):
         if self.kind not in SERVE_KINDS:
             raise ValueError(f'unknown serve fault kind {self.kind!r}')
+
+
+@dataclass(frozen=True)
+class ChaosPlan:
+    """Seeded, deterministic composition of *every* serving fault class
+    over a crash/restart loop — the input to the chaos soak
+    (:func:`repro_torch.launch.chaos.run_chaos_soak`).
+
+    The plan is pure data: the same seed always produces the same
+    request stream (sizes, arrival times, poison assignment via
+    :class:`RequestFaultPlan`), the same overload burst, the same
+    kernel-fault schedule, and the same crash points — the reference's
+    plan for the same fields.
+
+    - ``fraction_bad`` of the stream is poisoned (NaN inputs /
+      overflow-dense boxes, cycled as in :class:`RequestFaultPlan`).
+    - ``kernel_fault_step``: from this per-incarnation serve step on,
+      every kernel-path dispatch raises :class:`KernelPathFault`
+      (persistent — this is what drives the bucket into quarantine).
+      ``None`` disables kernel faults.
+    - ``crash_dispatches``: *cumulative* batch-dispatch counts (across
+      restarts) at which a :class:`SimulatedCrash` fires mid-step —
+      after admission and dequeue, before any result is produced, the
+      window where durability is hardest.
+    - ``overload_burst_n`` requests arrive simultaneously at
+      ``overload_burst_at`` so a bounded queue must visibly shed.
+    - ``torn_tail``: after each crash, append a partial JSON line to the
+      journal (a crash mid-append) — the reader must drop it and the
+      appender must heal it.
+    """
+    n_requests: int = 16
+    seed: int = 0
+    rate: float = 50.0
+    fraction_bad: float = 0.2
+    kernel_fault_step: Optional[int] = 2
+    crash_dispatches: tuple = (3, 7)
+    overload_burst_at: float = 0.05
+    overload_burst_n: int = 12
+    torn_tail: bool = True
+
+    def request_faults(self) -> RequestFaultPlan:
+        return RequestFaultPlan(fraction=self.fraction_bad,
+                                seed=self.seed)
+
+    def serve_faults(self) -> List[ServeFault]:
+        if self.kernel_fault_step is None:
+            return []
+        return [ServeFault(step=self.kernel_fault_step,
+                           kind='kernel_fault', persistent=True)]
 
 
 @dataclass

@@ -1,20 +1,25 @@
 """Atomic per-leaf checkpoints (the port's copy of the reference's format).
 
-Port of the synchronous part of ``repro.runtime.checkpoint``: the same
-directory layout, so a checkpoint written by either package is read by
-the other.
+Port of ``repro.runtime.checkpoint``: the same directory layout and leaf
+names, so a checkpoint written by either package is read by the other.
 
 - A checkpoint is a directory: ``manifest.json`` + one ``leaf_{i:05d}.npy``
-  per leaf, leaves in sorted key order (nested dict keys joined with
-  '.'), the manifest holding ``step``, ``extra`` and ``leaves`` (name,
-  file, shape, dtype of each).
+  per leaf, leaves in the order of jax's ``tree_flatten_with_path``: dict
+  keys sorted, list and tuple items in index order, names joined with '.'
+  (``params.w``, ``forces.0``, ``forces.1``, ..., ``forces.10``).  The
+  manifest holds ``step``, ``extra`` and ``leaves`` (name, file, shape,
+  dtype of each).
 - Atomicity: writes go to ``<dir>.tmp`` and are renamed into place.  Re-
   saving an existing step swaps the old dir aside to ``<dir>.old``, renames
   the tmp dir into place, then deletes the old copy, so at every instant
   at least one complete copy (tmp, old or final) is on disk.
+- Async save (:class:`AsyncCheckpointer`): every leaf is copied to host
+  memory synchronously, the files are written on a worker thread.
+- :func:`restore` places each leaf on a device (one, or a tree of them);
+  the reference places a leaf with a sharding instead.  Placing a slice of
+  a leaf on each rank waits for the port's atom sharding.
 
-Leaves may be numpy arrays or torch tensors (copied to the host).  The
-asynchronous writer and the resharding ``restore`` are not ported yet.
+Leaves may be numpy arrays or torch tensors (copied to the host).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -29,14 +35,36 @@ import numpy as np
 import torch
 
 
+def _children(tree):
+    """[(key, subtree)] of a dict (sorted keys) or a list or tuple (index
+    order), else None for a leaf."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
 def _flatten(tree, prefix=''):
-    """[(name, leaf)] of a dict tree in sorted key order."""
-    if not isinstance(tree, dict):
+    """[(name, leaf)] in jax's ``tree_flatten_with_path`` order."""
+    kids = _children(tree)
+    if kids is None:
         return [(prefix or 'leaf', tree)]
     out = []
-    for k in sorted(tree):
-        out += _flatten(tree[k], f'{prefix}.{k}' if prefix else str(k))
+    for k, sub in kids:
+        out += _flatten(sub, f'{prefix}.{k}' if prefix else str(k))
     return out
+
+
+def _unflatten(tree, leaves):
+    """``tree``'s structure with its leaves taken in order from the
+    iterator ``leaves``."""
+    kids = _children(tree)
+    if kids is None:
+        return next(leaves)
+    if isinstance(tree, dict):
+        return {k: _unflatten(sub, leaves) for k, sub in kids}
+    return type(tree)(_unflatten(sub, leaves) for _, sub in kids)
 
 
 def host_array(x) -> np.ndarray:
@@ -44,6 +72,14 @@ def host_array(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _host_copy(x) -> np.ndarray:
+    """A host copy of a leaf that shares no memory with it (``.cpu()`` of
+    a CPU tensor and ``np.asarray`` of an array alias their input)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to('cpu', copy=True).numpy()
+    return np.array(x, copy=True)
 
 
 def save(ckpt_dir, tree, step: int, extra: Optional[Dict] = None):
@@ -72,6 +108,88 @@ def save(ckpt_dir, tree, step: int, extra: Optional[Dict] = None):
     os.rename(tmp, ckpt_dir)
     if old.exists():
         shutil.rmtree(old)
+
+
+class AsyncCheckpointer:
+    """Snapshot-to-host synchronously, write-to-disk on a worker thread.
+
+    ``save_async`` waits for the previous write (re-raising its error),
+    copies every leaf to host memory — a copy, so changing a leaf in place
+    afterwards cannot reach the checkpoint — and starts the write;
+    ``wait`` joins it and re-raises the worker's error."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self.last_error: Optional[BaseException] = None
+
+    def save_async(self, ckpt_dir, tree, step: int,
+                   extra: Optional[Dict] = None):
+        self.wait()
+        host_tree = _unflatten(tree, iter(
+            [_host_copy(leaf) for _, leaf in _flatten(tree)]))
+
+        def work():
+            try:
+                save(ckpt_dir, host_tree, step, extra)
+            except BaseException as e:   # re-raised by wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            err, self.last_error = self.last_error, None
+            raise err
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch or numpy dtype (or its name)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+
+
+def restore(ckpt_dir, target_tree, devices=None):
+    """Restore into the structure of ``target_tree`` (leaves: tensors,
+    arrays or anything with ``shape`` and ``dtype``): each leaf cast to
+    its target's dtype (torch or numpy) and placed on ``devices`` — one
+    device for every leaf, or a tree of devices shaped like
+    ``target_tree``; None gives CPU tensors.
+
+    The checkpoint holds logical (whole) leaves, so a checkpoint written
+    on any device restores onto any other.  The reference places each leaf
+    with a sharding of the current mesh instead; placing a slice of a leaf
+    on each rank waits for the port's atom sharding.
+    """
+    ckpt_dir = Path(ckpt_dir)
+    manifest = json.loads((ckpt_dir / 'manifest.json').read_text())
+    leaves = _flatten(target_tree)
+    if len(manifest['leaves']) != len(leaves):
+        raise ValueError(
+            f'checkpoint has {len(manifest["leaves"])} leaves, target has '
+            f'{len(leaves)} — structure mismatch')
+    if devices is None or isinstance(devices, (str, torch.device)):
+        where = [devices or 'cpu'] * len(leaves)
+    else:
+        where = [d for _, d in _flatten(devices)]
+        if len(where) != len(leaves):
+            raise ValueError(
+                f'{len(where)} devices for {len(leaves)} leaves — '
+                f'structure mismatch')
+    out = []
+    for (name, tgt), meta, dev in zip(leaves, manifest['leaves'], where):
+        arr = np.load(ckpt_dir / meta['file'])
+        if list(arr.shape) != list(tgt.shape):
+            raise ValueError(
+                f'leaf {name}: checkpoint shape {arr.shape} != target '
+                f'{tuple(tgt.shape)}')
+        out.append(torch.from_numpy(arr).to(
+            device=torch.device(dev), dtype=_torch_dtype(tgt.dtype)))
+    return _unflatten(target_tree, iter(out))
 
 
 def restore_named(ckpt_dir) -> tuple:

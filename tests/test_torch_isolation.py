@@ -38,7 +38,8 @@ def test_no_jax_or_reference_imports(path):
 def test_isolation_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {'ops.py', 'snap.py', 'integrate.py', 'chip_smoke.py',
-            'serve_forces.py', 'request_queue.py'} <= names
+            'serve_forces.py', 'request_queue.py', 'journal.py',
+            'chaos.py', 'checkpoint.py'} <= names
 
 
 @pytest.fixture
@@ -95,3 +96,23 @@ def test_force_service_without_card_raises(no_card):
 def test_explicit_cpu_runs_plain_versions(no_card):
     e, _, f = ops.snap_force_pipeline(*_args(), device='cpu')
     assert torch.isfinite(e) and f.device.type == 'cpu'
+
+
+def test_durable_service_without_card_raises(no_card, tmp_path):
+    """The chaos soak and a server's restore default to the card too, and
+    run on the CPU only when asked."""
+    from repro_torch.launch.chaos import run_chaos_soak
+    from repro_torch.launch.request_queue import BucketTable
+    from repro_torch.launch.serve_forces import ForceServer
+    from repro_torch.md.fault_inject import ChaosPlan
+    plan = ChaosPlan(n_requests=2, kernel_fault_step=None,
+                     crash_dispatches=(), overload_burst_n=0)
+    with pytest.raises(RuntimeError, match='cuda'):
+        run_chaos_soak(plan, tmp_path / 'soak')
+    jp = str(tmp_path / 'j.jsonl')
+    with pytest.raises(RuntimeError, match='cuda'):
+        ForceServer.restore(BucketTable(), jp)
+    srv = ForceServer.restore(BucketTable(), jp, device='cpu')
+    assert srv.device.type == 'cpu' and srv.health().replayed == 0
+    rep = run_chaos_soak(plan, tmp_path / 'soak', device='cpu')
+    assert rep.ok and rep.n_requests == 2, rep.violations
