@@ -64,7 +64,27 @@ journal (fsync every 16 appends and every append, 128 and 2000 atoms),
 the tail and capacity runs without and with a journal in turns, a
 snapshot of a full result store (256 results), the soak's restores and a
 drain of a 16-request backlog; journals and snapshots go to a temporary
-directory.  At
+directory.  The sharded phase spawns 2 ranks on the one card over a gloo
+group (``repro_torch.launch.sharding.spawn_ranks``; NCCL takes one card a
+rank) and drives ``kernels.ops.make_sharded_force_fn`` on the half kernel
+path in float64 and float32 and on the float64 adjoint: the gathered
+forces and energies against the unsharded evaluation on the card, two
+sharded evaluations bitwise equal, one launch of each kernel of the path
+per rank per evaluation, the assembly kernel's offset form (a rank's 1000
+rows into 2000 output rows) against its plain version; then
+``run_nve(loop='device', shards=2)`` for 20 steps against the single-rank
+device-loop run with the launch counters set to 0 before and read after,
+and a single-rank checkpoint at step 10 read back as rank slices and
+continued on both ranks.  The baseline phase holds ``impl='baseline'`` (Z
+and dB stored) at snap-2j8 in float64 and float32 and at 2J = 14 in
+float32 against the float64 adjoint, twice bitwise, times it beside the
+adjoint and the half kernel path (CUDA events, median of 5) with each
+one's peak ``torch.cuda.max_memory_allocated``, and runs 4 device-loop
+steps of it against the adjoint.  The fit phase is
+``examples/fit_snap.py``'s self-consistency fit at snap-2j8 width (4
+perturbed 2000-atom cells labelled by the float64 adjoint, 40-wide lists,
+``repro_torch.fit.fit_snap_linear``, a held-out cell) with the time and
+peak memory of ``descriptor_rows`` a cell.  At
 2J = 14 (float32) it holds the half and full kernels against their plain
 versions and times the half-plane pipeline (median of 5 evaluations after
 warm-up).
@@ -82,7 +102,10 @@ split-run and rolled-back thermo rows bitwise equal to the straight run's;
 serving: the bars above by dtype, float32 (1e-5) for the solo request,
 the float32 adjoint and quarantine, batch peers vs solo bitwise;
 durability: completed results vs solo evaluations bitwise, on both impl
-paths.
+paths; sharded vs unsharded (the reference's bars): 1e-12 relative in
+float64, 1e-5 in float32, device-loop T, PE and Etot 1e-9; baseline vs the
+float64 adjoint 1e-10 in float64, 1e-5 in float32, its MD PE 1e-9; the
+held-out fit relE < 1e-6 and max |dF| < 1e-4 eV/A.
 Times are medians of CUDA-event timings after
 warm-up (``ms``: one call between two events, wrapper host time
 included) and, for each kernel and library call, device time alone
@@ -191,6 +214,26 @@ SOAK_CI = dict(n_requests=8, seed=1, fraction_bad=0.25, kernel_fault_step=1,
 SOAK_STEP_S = 0.25
 SOAK_CRASHES, SOAK_SNAP_EVERY = (60, 180), 8
 JOURNAL_N, JOURNAL_FSYNC = 200, (16, 1)
+# the sharded phase: 2 ranks on one card over gloo; the pipelines each rank
+# runs sharded (tag: impl, options, bar vs the unsharded evaluation: the
+# reference's 1e-12 in float64, 1e-5 in float32); timed evaluations
+SHARDS, SHARD_REPS = 2, 5
+SHARD_PATHS = {
+    'half f64': ('kernel', dict(dtype=torch.float64), 1e-12),
+    'half f32': ('kernel', dict(dtype=torch.float32), 1e-5),
+    'adjoint f64': ('adjoint', {}, 1e-12),
+}
+# the baseline phase: (2J, dtypes); timed evaluations (CUDA events); MD
+# steps against the adjoint, and their bar
+BASELINE_CASES, BASELINE_REPS = ((8, (torch.float64, torch.float32)),
+                                 (14, (torch.float32,))), 5
+BASELINE_MD_STEPS = 4
+# the fit phase: the example's self-consistency fit at snap-2j8 width
+# (examples/fit_snap.py): 4 cells perturbed 0.05 + 0.04 s A (seed s),
+# 40-wide lists, beta of seed 7 x 1e-2, beta0 -8.9; held-out cell seed 99,
+# 0.08 A; its bars
+FIT_CELLS, FIT_NBORS, FIT_BETA0, FIT_HELD_OUT = 4, 40, -8.9, (99, 0.08)
+FIT_REL_E, FIT_MAX_DF = 1e-6, 1e-4
 SMS = 132                    # H100 SXM
 STACK_MAX = 1024             # bytes of stack frame a fused dE kernel may use
 DEVICE_REPS = 20             # K of device_ms
@@ -565,9 +608,10 @@ VARIANTS = {
 }
 
 
-def assemble_index_add(dedr, nbr_idx, mask, natoms):
-    """The reference's force scatter in its one-call library form
-    (``index_add_``, float atomics on the card)."""
+def assemble_index_add(dedr, nbr_idx, mask, natoms, group=None):
+    """The reference's single-shard force scatter in its one-call library
+    form (``index_add_``, float atomics on the card)."""
+    assert group is None, 'the index_add_ stand-in is single-shard'
     d = dedr * mask[..., None].to(dedr.dtype)
     return d.sum(dim=1).index_add_(0, nbr_idx.reshape(-1).long(),
                                    -d.reshape(-1, 3))
@@ -1807,6 +1851,394 @@ def big_phase(dev):
     return stats
 
 
+def sharded_rank(rank, dev, cfg, beta, disp, nbr_idx, mask, pos, box, vel,
+                 ckpt_dir):
+    """One rank of the sharded phase (a spawned process of a 2-rank gloo
+    group, on cuda:0): each path of SHARD_PATHS through
+    ``make_sharded_force_fn`` (launch counts of one evaluation, a second one
+    bitwise, the gathered result, ms per evaluation), the offset assembly
+    kernel against its plain version on this rank's rows, then
+    ``run_nve(loop='device', shards=2)`` with the launch counters set to 0
+    before and read after, timed again, and the continuation of the
+    single-rank checkpoint in ``ckpt_dir`` from rank slices."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.assemble import (assemble_forces_csr,
+                                              assemble_forces_csr_plain,
+                                              destination_csr)
+    from repro_torch.runtime.shard import gather_atoms, rank_rows
+    from repro_torch.md.integrate import MDState, run_nve
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    beta = torch.as_tensor(beta, device=dev)
+    inputs = device_inputs(disp, nbr_idx, mask, dev)
+    out = dict(rank=rank, backend=dist.get_backend(),
+               collective_tensors=str(inputs[0].device))
+    for tag, (impl, kw, _) in SHARD_PATHS.items():
+        fn = ops.make_sharded_force_fn(cfg, beta, 0.0, impl=impl,
+                                       device=dev, **kw)
+        fn(*inputs)                                  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        e, e_atom, f = fn(*inputs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        e2, _, f2 = fn(*inputs)
+        times = []
+        for _ in range(SHARD_REPS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn(*inputs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = dict(
+            e=float(e), e_atom=gather_atoms(e_atom).cpu().numpy(),
+            f=gather_atoms(f).cpu().numpy(), local_rows=f.shape[0],
+            counts=counts, ms=statistics.median(times),
+            bitwise=bool(torch.equal(f, f2) and torch.equal(e, e2)))
+
+    # the offset assembly on this rank's rows of the main path's lists:
+    # d of the shape the half pipeline hands it, from a seeded generator,
+    # in f64 (the timed form) and f32 (the 'half f32' path's)
+    offset, n_local = rank_rows(NATOMS)
+    rows = slice(offset, offset + n_local)
+    nbr, ok = inputs[3][rows].long(), inputs[4][rows]
+    g = torch.Generator(device=dev).manual_seed(rank)
+    d64 = (torch.randn((n_local, NNBOR, 3), generator=g, dtype=torch.float64,
+                       device=dev) * ok[..., None]).contiguous()
+    csr = destination_csr(torch.where(ok, nbr, NATOMS), NATOMS)
+    asm = {}
+    for dtype, sfx in ((torch.float64, ''), (torch.float32, '_f32')):
+        d = d64.to(dtype)
+
+        def library():   # the index_add_ form of the same partial
+            part = d.new_zeros((NATOMS, 3))
+            part[rows] = d.sum(dim=1)
+            return part.index_add_(0, nbr.reshape(-1), -d.reshape(-1, 3))
+
+        got = assemble_forces_csr(d, *csr, offset)
+        want = assemble_forces_csr_plain(d, *csr, offset)
+        torch.cuda.synchronize()
+        abs_err, err = rel_err(got, want)
+        asm.update({f'max_abs_err{sfx}': abs_err, f'max_rel_err{sfx}': err,
+                    f'shape{sfx}': list(got.shape),
+                    f'dtype{sfx}': str(got.dtype)[6:],
+                    f'bitwise{sfx}': bool(torch.equal(got, want))})
+        for who in range(SHARDS):   # one rank at a time on the card
+            dist.barrier()
+            if who == rank == 0:
+                asm.update({
+                    f'ms{sfx}': time_ms(lambda: assemble_forces_csr(
+                        d, *csr, offset)),
+                    f'device_ms{sfx}': device_ms(lambda: assemble_forces_csr(
+                        d, *csr, offset))[0],
+                    f'plain_ms{sfx}': time_ms(
+                        lambda: assemble_forces_csr_plain(d, *csr, offset),
+                        reps=10),
+                    f'library_ms{sfx}': time_ms(library),
+                    f'library_device_ms{sfx}': device_ms(library)[0]})
+                asm[f'bound_ms{sfx}'], asm[f'bound_by{sfx}'] = bound(
+                    nbytes(d, *csr) + NATOMS * 3 * d.element_size(),
+                    6 * int(ok.sum()), dtype)
+    out['assemble'] = asm
+
+    kw = dict(impl='kernel', loop='device', skin=SKIN,
+              max_nbors=DEVICE_NBORS, log_every=DEVICE_LOG, device=dev,
+              dtype=torch.float64, shards=SHARDS)
+
+    def state():
+        return MDState(pos=pos.copy(), vel=vel.copy(), box=box)
+
+    cache = {}
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launch_counts()
+    _, thermo = run_nve(cfg, beta, 0.0, state(), DEVICE_STEPS,
+                        fn_cache=cache, **kw)
+    torch.cuda.synchronize()
+    out['md_counts'] = ops.launch_counts()
+    out['md_thermo'] = thermo
+    dist.barrier()
+    t0 = time.perf_counter()
+    run_nve(cfg, beta, 0.0, state(), DEVICE_STEPS, fn_cache=cache, **kw)
+    torch.cuda.synchronize()
+    out['md_ms_step'] = (time.perf_counter() - t0) * 1e3 / DEVICE_STEPS
+    st, tail = run_nve(cfg, beta, 0.0, state(), DEVICE_STEPS // 2,
+                       checkpoint_dir=ckpt_dir, restore=True, **kw)
+    out['tail'], out['tail_step'] = tail, st.step
+    dist.barrier()
+    return out
+
+
+def sharded_phase(cfg, beta, pos, box, nbr_idx, mask, disp, dev, straight):
+    """The atom-sharded path on 2 ranks of one card over a gloo group
+    (NCCL takes one card a rank): each path of SHARD_PATHS gathered
+    against the unsharded evaluation on the card, two sharded evaluations
+    bitwise, one launch of each kernel of the path per rank per
+    evaluation, the offset assembly kernel against its plain version,
+    ``run_nve(loop='device', shards=2)`` against the single-rank run
+    ``straight`` (T, PE, Etot at 1e-9 relative), and a single-rank
+    checkpoint continued on the 2 ranks from rank slices.  Returns rank
+    0's MD launch counts and the offset assembly's numbers."""
+    from repro_torch.core import snap as core_snap
+    from repro_torch.launch.sharding import spawn_ranks
+    from repro_torch.md.integrate import MDState, init_velocities, run_nve
+    vel = init_velocities(NATOMS, 300.0)
+    args = (cfg, beta, 0.0, *device_inputs(disp, nbr_idx, mask, dev))
+    ref = {tag: core_snap.energy_forces(*args, impl=impl, device=dev, **kw)
+           for tag, (impl, kw, _) in SHARD_PATHS.items()}
+    k = DEVICE_STEPS // 2
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        run_nve(cfg, beta, 0.0, MDState(pos=pos.copy(), vel=vel.copy(),
+                                        box=box), k, impl='kernel',
+                loop='device', skin=SKIN, max_nbors=DEVICE_NBORS,
+                log_every=DEVICE_LOG, device=dev, dtype=torch.float64,
+                checkpoint_dir=d, checkpoint_every=k)
+        torch.cuda.empty_cache()    # room for the ranks' own contexts
+        ranks = spawn_ranks(sharded_rank, SHARDS, str(dev), cfg,
+                            beta.cpu().numpy(), disp, nbr_idx, mask, pos,
+                            box, vel, d)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f'     sharded: {SHARDS} ranks on {torch.cuda.get_device_name(0)} '
+          f'over {r0["backend"]}, {r0["collective_tensors"]} tensors handed '
+          f'to the collectives (gloo moves them through host memory); '
+          f'{wall:.1f} s wall with the spawn', flush=True)
+    for tag, (impl, _, bar) in SHARD_PATHS.items():
+        e_ref, ea_ref, f_ref = (t.double().cpu() for t in ref[tag])
+        path = PATHS['half'] if impl == 'kernel' else ('assemble_forces',)
+        want = {n: (1 if n in path else 0) for n in r0[tag]['counts']}
+        for r in ranks:
+            got = r[tag]
+            _, f_err = rel_err(torch.as_tensor(got['f']).double(), f_ref)
+            _, a_err = rel_err(torch.as_tensor(got['e_atom']).double(),
+                               ea_ref)
+            e_err = abs(got['e'] - float(e_ref)) / abs(float(e_ref))
+            check(max(f_err, a_err, e_err) <= bar
+                  and got['local_rows'] == NATOMS // SHARDS,
+                  f'sharded {tag} rank {r["rank"]}: gathered forces, per-atom '
+                  f'and total energy vs the unsharded evaluation: max rel '
+                  f'err {f_err:.3e}, {a_err:.3e}, {e_err:.3e} (bar '
+                  f'{bar:.0e}); {got["local_rows"]} local rows')
+            check(got['bitwise'] and got['counts'] == want,
+                  f'sharded {tag} rank {r["rank"]}: two evaluations '
+                  f'bitwise equal; launches of one evaluation '
+                  f'{got["counts"]} == 1 for each kernel of the path')
+        check(all(np.array_equal(r[tag]['f'], r0[tag]['f'])
+                  for r in ranks),
+              f'sharded {tag}: both ranks hold the same gathered forces '
+              '(bitwise)')
+        print(f'     sharded {tag}: {r0[tag]["ms"]:.3f} / '
+              f'{ranks[1][tag]["ms"]:.3f} ms per sharded evaluation on rank '
+              f'0 / 1 (host clock, ends in a sync, median of {SHARD_REPS})',
+              flush=True)
+    for r in ranks:
+        a = r['assemble']
+        for dtype, sfx in ((torch.float64, ''), (torch.float32, '_f32')):
+            check(a[f'max_rel_err{sfx}'] <= TOL[dtype]
+                  and a[f'shape{sfx}'] == [NATOMS, 3]
+                  and a[f'dtype{sfx}'] == str(dtype)[6:],
+                  f'assemble_forces offset form {a[f"dtype{sfx}"]}, rank '
+                  f'{r["rank"]} (rows {r["rank"] * NATOMS // SHARDS}.., '
+                  f'{NATOMS} output rows): max rel err vs plain '
+                  f'{a[f"max_rel_err{sfx}"]:.3e} (bar {TOL[dtype]:.0e}), '
+                  f'bitwise {a[f"bitwise{sfx}"]}')
+    a = r0['assemble']
+    for sfx in ('', '_f32'):
+        print(f'     assemble_forces offset form (rank 0, '
+              f'{a[f"dtype{sfx}"]}): {a[f"ms{sfx}"]:.4f} ms per call, '
+              f'{a[f"device_ms{sfx}"]:.4f} ms device (plain '
+              f'{a[f"plain_ms{sfx}"]:.4f} ms, index_add_ form '
+              f'{a[f"library_ms{sfx}"]:.4f} ms, device '
+              f'{a[f"library_device_ms{sfx}"]:.4f} ms; bound '
+              f'{a[f"bound_ms{sfx}"]:.5f} ms by {a[f"bound_by{sfx}"]})',
+              flush=True)
+
+    def rows(thermo):
+        return np.array([[t['T'], t['pe'], t['etot']] for t in thermo])
+
+    want = rows(straight)
+    by_step = {t['step']: t for t in straight}
+    n_eval = DEVICE_STEPS + 1
+    for r in ranks:
+        got = rows(r['md_thermo'])
+        err = (float(np.max(np.abs(got - want) / np.abs(want)))
+               if got.shape == want.shape else float('inf'))
+        counts = r['md_counts']
+        cwant = {n: (n_eval if n in PATHS['device'] else 0) for n in counts}
+        check(err <= THERMO_TOL and counts == cwant,
+              f'sharded device loop rank {r["rank"]}: {DEVICE_STEPS} steps '
+              f'of run_nve(shards={SHARDS}): T, PE, Etot vs shards=1 max rel '
+              f'diff {err:.3e} (bar {THERMO_TOL:.0e}); launches {counts} == '
+              f'{n_eval} for each kernel of the path')
+        tail = r['tail']
+        terr = (float(np.max(np.abs(rows(tail) - rows(
+            [by_step[t['step']] for t in tail])) / np.abs(rows(tail))))
+            if tail and all(t['step'] in by_step for t in tail)
+            else float('inf'))
+        check(r['tail_step'] == DEVICE_STEPS and terr <= THERMO_TOL,
+              f'sharded restore rank {r["rank"]}: a shards=1 checkpoint at '
+              f'step {k} read as rank slices and continued {k} steps on '
+              f'{SHARDS} ranks: thermo vs the straight run max rel diff '
+              f'{terr:.3e} (bar {THERMO_TOL:.0e})')
+    print(f'     sharded device loop: {r0["md_ms_step"]:.3f} / '
+          f'{ranks[1]["md_ms_step"]:.3f} ms per step on rank 0 / 1 '
+          f'({DEVICE_STEPS} steps, chunk function cached, host clock, ends '
+          'in a sync)', flush=True)
+    return r0['md_counts'], dict(
+        {f'{key}_sharded{sfx}': a[f'{key}{sfx}']
+         for key in ('max_abs_err', 'ms', 'device_ms', 'plain_ms',
+                     'bound_ms', 'bound_by', 'library_ms',
+                     'library_device_ms')
+         for sfx in ('', '_f32')},
+        sharded_eval_ms={tag: r0[tag]['ms'] for tag in SHARD_PATHS},
+        sharded_md_ms_step=r0['md_ms_step'],
+        sharded_backend=r0['backend'])
+
+
+def peak_gb():
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def measured(fn):
+    """(result, ms, peak GB): one call from an emptied allocator with the
+    peak reset, then the median of BASELINE_REPS CUDA-event timings."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = peak_gb()
+    return out, time_ms(fn, reps=BASELINE_REPS, warmup=1), peak
+
+
+def baseline_phase(dev):
+    """impl='baseline' (Z and dB stored) at snap-2j8 in float64 and float32
+    and at 2J = 14 in float32: against the float64 adjoint, two
+    evaluations bitwise, ms and peak memory beside the adjoint's and the
+    half kernel path's; then 4 device-loop MD steps against the
+    adjoint."""
+    from dataclasses import replace
+
+    from repro_torch.core import snap as core_snap
+    from repro_torch.kernels import ops
+    from repro_torch.md.integrate import MDState, init_velocities, run_nve
+    out = {}
+    for twojmax, dtypes in BASELINE_CASES:
+        cfg, beta, pos, box, nbr_idx, mask, disp = setup(twojmax, dev)
+        if twojmax == 14:
+            beta = beta * 1e-2
+        args = (beta, 0.0, *device_inputs(disp, nbr_idx, mask, dev))
+        e_ref, _, f_ref = core_snap.energy_forces_adjoint(
+            replace(cfg, dtype=torch.float64), *args, device=dev)
+        for dtype in dtypes:
+            c = replace(cfg, dtype=dtype)
+            fns = {
+                'baseline': lambda c=c: core_snap.energy_forces(
+                    c, *args, impl='baseline', device=dev),
+                'adjoint': lambda c=c: core_snap.energy_forces(
+                    c, *args, impl='adjoint', device=dev),
+                'kernel': lambda dtype=dtype: ops.snap_force_pipeline(
+                    cfg, *args, dtype=dtype, device=dev),
+            }
+            tag = f'2J={twojmax} {str(dtype)[6:]}'
+            row = {}
+            for name, fn in fns.items():
+                (e, _, f), ms, peak = measured(fn)
+                row[name] = dict(ms=ms, peak_gb=peak)
+                if name != 'baseline':
+                    continue
+                _, err = rel_err(f.double(), f_ref)
+                de = abs(float(e) - float(e_ref)) / abs(float(e_ref))
+                check(max(err, de) <= TOL[dtype] and f.dtype == dtype,
+                      f'baseline {tag}: forces vs the f64 adjoint max rel err '
+                      f'{err:.3e}, energy {de:.3e} (bar {TOL[dtype]:.0e})')
+                e2, _, f2 = fn()
+                check(torch.equal(f, f2) and torch.equal(e, e2),
+                      f'baseline {tag}: two evaluations give equal forces '
+                      'and energies (bitwise)')
+                del e, f, e2, f2
+            print(f'     {tag}: ' + '; '.join(
+                f'{n} {v["ms"]:.3f} ms, peak {v["peak_gb"]:.3f} GB'
+                for n, v in row.items()) + f' (median of {BASELINE_REPS}, '
+                'CUDA events; peak torch.cuda.max_memory_allocated)',
+                flush=True)
+            out[tag] = row
+    cfg, beta, pos, box, _, _, _ = setup(8, dev)
+    vel = init_velocities(NATOMS, 300.0)
+    pe = {}
+    for impl in ('baseline', 'adjoint'):
+        _, thermo = run_nve(cfg, beta, 0.0, MDState(pos=pos.copy(),
+                                                    vel=vel.copy(), box=box),
+                            BASELINE_MD_STEPS, impl=impl, loop='device',
+                            skin=SKIN, max_nbors=DEVICE_NBORS, log_every=2,
+                            device=dev)
+        pe[impl] = np.array([t['pe'] for t in thermo])
+    err = float(np.max(np.abs(pe['baseline'] - pe['adjoint'])
+                       / np.abs(pe['adjoint'])))
+    check(err <= THERMO_TOL, f'baseline md: {BASELINE_MD_STEPS} steps of '
+          f"run_nve(loop='device', impl='baseline'): PE vs impl='adjoint' "
+          f'max rel diff {err:.3e} (bar {THERMO_TOL:.0e})')
+    return out
+
+
+def fit_phase(dev):
+    """The example's self-consistency fit at snap-2j8 width on the card:
+    FIT_CELLS perturbed 2000-atom cells labelled by the float64 adjoint,
+    ``fit_snap_linear`` (dB rows on the card, the ridge solve on the host
+    in float64), then a held-out cell; ms and peak memory of
+    ``descriptor_rows`` per cell."""
+    from repro_torch.core.snap import SnapConfig, energy_forces_adjoint
+    from repro_torch.fit import FitData, descriptor_rows, fit_snap_linear
+    from repro_torch.md.lattice import paper_box, perturb
+    from repro_torch.md.neighbor import cell_neighbors
+    cfg = SnapConfig(twojmax=8, rcut=RCUT)
+    beta_true = np.random.default_rng(7).normal(size=cfg.ncoeff) * 1e-2
+
+    def cell(seed, scale, beta=beta_true, beta0=FIT_BETA0):
+        pos, box = paper_box(NATOMS)
+        pos = perturb(pos, scale, seed=seed)
+        nbr, mask, disp, _ = cell_neighbors(pos, box, RCUT,
+                                            max_nbors=FIT_NBORS)
+        e, _, f = energy_forces_adjoint(cfg, beta, beta0, disp[..., 0],
+                                        disp[..., 1], disp[..., 2], nbr,
+                                        mask, device=dev)
+        return FitData(disp=disp, nbr_idx=nbr, mask=mask, e_ref=float(e),
+                       f_ref=f.cpu().numpy())
+
+    data = [cell(s, 0.05 + 0.04 * s) for s in range(FIT_CELLS)]
+    times, peaks = [], []
+    for d in data:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        descriptor_rows(cfg, d, dev)          # ends in the rows' readback
+        times.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(peak_gb())
+    t0 = time.perf_counter()
+    beta0, beta, diag = fit_snap_linear(cfg, data, device=dev)
+    fit_s = time.perf_counter() - t0
+    held = cell(*FIT_HELD_OUT)
+    hat = cell(*FIT_HELD_OUT, beta=beta, beta0=beta0)
+    rel_e = abs(hat.e_ref - held.e_ref) / abs(held.e_ref)
+    max_df = float(np.max(np.abs(hat.f_ref - held.f_ref)))
+    check(rel_e < FIT_REL_E and max_df < FIT_MAX_DF,
+          f'fit snap-2j8: {FIT_CELLS} cells x {NATOMS} atoms, rms E '
+          f'{diag["rms_e"]:.3e} eV, rms F {diag["rms_f"]:.3e} eV/A; held-out '
+          f'relE {rel_e:.3e} (bar {FIT_REL_E:.0e}), max |dF| {max_df:.3e} '
+          f'eV/A (bar {FIT_MAX_DF:.0e})')
+    print(f'     fit: descriptor_rows {statistics.median(times):.1f} ms a '
+          f'cell (median of {FIT_CELLS}, host clock incl. the readback; '
+          f'{", ".join(f"{t:.1f}" for t in times)}), peak '
+          f'{max(peaks):.3f} GB; fit_snap_linear {fit_s:.2f} s for '
+          f'{FIT_CELLS} cells', flush=True)
+    return dict(rows_ms=times, rows_peak_gb=peaks, fit_s=fit_s, rel_e=rel_e,
+                max_df=max_df)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
@@ -1846,6 +2278,8 @@ def main():
     for dtype in (torch.float64, torch.float32):
         stats[dtype].update(neighbor_phase(pos, box, dev, dtype))
     runs['device'] = device_loop_phase(cfg, beta, pos, box, dev)
+    sharded_counts, sharded_numbers = sharded_phase(
+        cfg, beta, pos, box, nbr_idx, mask, disp, dev, runs['device'][1])
     serve_counts, serve_numbers, y_lanes = serve_phase(dev)
     print('serve: ' + json.dumps(serve_numbers), flush=True)
     durable_counts, durable_numbers = durability_phase(dev)
@@ -1856,6 +2290,8 @@ def main():
           f'{pe["full"]:.12f} vs half-plane {pe["half"]:.12f} eV (rel diff '
           f'{d_pe:.3e}, bar {MD_PE_TOL:.0e})')
     big = big_phase(dev)
+    print('baseline: ' + json.dumps(baseline_phase(dev)), flush=True)
+    print('fit: ' + json.dumps(fit_phase(dev)), flush=True)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1877,6 +2313,9 @@ def main():
                       for k, v in stats[other][name].items()})
         if name in big:
             entry.update({f'{k}_2j14_f32': v for k, v in big[name].items()})
+        if name == 'assemble_forces':   # the offset form, on 2 ranks
+            entry.update(sharded_numbers,
+                         launches_sharded=sharded_counts[name])
         if name == 'snap_y_half':   # a coefficient row a lane (serving)
             for dtype, st in y_lanes.items():
                 entry.update({f'{k}_lanes_{str(dtype)[6:]}': v

@@ -1,8 +1,8 @@
 """Clebsch-Gordan stages: Z (eq. 3), B (eq. 2), and the adjoint Y (eq. 7).
 
 Port of ``repro.core.bispectrum``: the irregular triple loops of LAMMPS
-``compute_zi`` / ``compute_bi`` / ``compute_yi`` as COO gather /
-scatter-add (:func:`_add_columns`) over the static tables of
+``compute_zi`` / ``compute_bi`` / ``compute_yi`` / ``compute_dbidrj`` as
+COO gather / scatter-add (:func:`_add_columns`) over the static tables of
 :mod:`repro_torch.core.indices`, vectorized over atoms.  Each destination
 sums its terms in a fixed order on every device, so two evaluations of
 the same inputs give the same bits.
@@ -110,6 +110,39 @@ def compute_ylist(ulisttot, beta, idx: SnapIndex, nchunk=None):
     return _chunked_scatter_products(
         ulisttot, idx.z_coo_src1, idx.z_coo_src2, coef,
         idx.idxz_jju[idx.z_coo_dest], idx.idxu_max, nchunk)
+
+
+def compute_dblist(du_pairs, zlist, atom_of_pair, idx: SnapIndex,
+                   nchunk=None):
+    """dB/dr per pair (LAMMPS compute_dbidrj): real [P, 3, idxb_max].
+
+    du_pairs: complex [P, 3, idxu]; zlist: [natoms, idxz]; atom_of_pair:
+    [P] long.  Z is gathered to every pair ([P, idxz]); the dU and Z
+    columns of the COO table are gathered ``nchunk`` slices at a time (None:
+    enough slices to bound a slice's dU gather), and each destination's
+    terms are added in COO order whatever the slicing
+    (:func:`_add_columns`).
+    """
+    dev = du_pairs.device
+    rdt = du_pairs.real.dtype
+    n_pairs, nnz = du_pairs.shape[0], len(idx.db_coo_dest)
+    if nchunk is None:
+        nchunk = _auto_chunks(3 * n_pairs, nnz, du_pairs.element_size())
+    out = torch.zeros((n_pairs, 3, idx.idxb_max), dtype=rdt, device=dev)
+    z_at = zlist[atom_of_pair]                                 # [P, idxz]
+    w = torch.as_tensor(idx.db_coo_w, dtype=rdt, device=dev)
+    bounds = np.linspace(0, nnz, nchunk + 1).astype(int)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if hi == lo:
+            continue
+        z = z_at[:, _long(idx.db_coo_zsrc[lo:hi], dev)]        # [P, c]
+        du = du_pairs[:, :, _long(idx.db_coo_dusrc[lo:hi], dev)]
+        contrib = w[lo:hi] * (du.real * z.real[:, None, :]
+                              + du.imag * z.imag[:, None, :])
+        _add_columns(out.view(-1, idx.idxb_max),
+                     _long(idx.db_coo_dest[lo:hi], dev),
+                     contrib.reshape(-1, hi - lo))
+    return out
 
 
 def compute_dedr(du_pairs, ylist, atom_of_pair, idx: SnapIndex):

@@ -1,8 +1,12 @@
 """Public SNAP API: energy / force / descriptor pipelines (torch port).
 
-Port of ``repro.core.snap``.  Two force implementations behind
+Port of ``repro.core.snap``.  Three force implementations behind
 :func:`energy_forces`:
 
+- ``baseline`` — the pre-paper formulation (paper Listing 1/2): Zlist and
+  dBlist per (atom, neighbor) are materialized, forces from
+  F = -beta . dB.  O(J^5) Z storage per pair: the memory blow-up of the
+  paper's Fig. 1, kept on purpose.
 - ``adjoint`` — the paper's Sec. IV refactorization (Listing 5): the
   neighbor-independent adjoint Y = sum beta*Z on the fly (no Z storage),
   then the fused force contraction dE = 2 sum w Re(conj(dU) Y).
@@ -12,8 +16,9 @@ Port of ``repro.core.snap``.  Two force implementations behind
   bfloat16 Y operands with ``mxu_dtype=torch.bfloat16``.
 
 ``energy_forces_autodiff`` (reverse mode through ``torch.autograd``) is the
-independent oracle.  The ``baseline`` pipeline and atom sharding are not
-ported yet (ROADMAP Queue A items 4 and 3).
+independent oracle.  Each pipeline takes ``shard=(group, n_shards)`` to run
+as one rank of an atom-sharded evaluation
+(:func:`repro_torch.kernels.ops.make_sharded_force_fn`).
 
 All pipelines consume padded per-atom neighbor lists:
     dx, dy, dz : [natoms, nnbor]   displacements r_k - r_i
@@ -28,6 +33,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import bispectrum as bs
 from ..kernels.assemble import assemble_forces_csr, destination_csr
@@ -118,23 +124,41 @@ def snap_energy(cfg: SnapConfig, beta, beta0, dx, dy, dz, mask):
     return torch.sum(e_atom), e_atom
 
 
-def assemble_forces(dedr, nbr_idx, mask, natoms):
+def assemble_forces(dedr, nbr_idx, mask, natoms, group=None):
     """F_i += sum_k dE_i/dr_k ; F_k -= dE_i/dr_k (Newton's third law).
 
-    Single-shard assembly: ``dedr`` [natoms, nnbor, 3] rows span all atoms.
-    Each atom's sum runs in a fixed order (its own row, then the rows that
+    group=None: single-shard assembly — ``dedr`` [natoms, nnbor, 3] rows
+    span all atoms.
+
+    group (a ``torch.distributed`` process group): atom-sharded assembly —
+    ``dedr`` holds this rank's ``n_local`` rows (atoms ``rank * n_local``
+    onwards), ``nbr_idx`` holds **global** indices and ``natoms`` is the
+    global count.  The rank assembles a full-length partial (its own rows
+    at its offset, its Newton reactions on any row) and a reduce-scatter
+    over the group sums the partials and returns this rank's rows, as the
+    reference's ``psum_scatter(tiled=True)`` does.
+
+    Each sum runs in a fixed order (an atom's own row, then the rows that
     name it as neighbor, sorted by destination), so on the card two
     evaluations of the same inputs give the same bits; see
     :mod:`repro_torch.kernels.assemble`.
     """
-    if dedr.shape[0] != natoms:
-        raise ValueError(f'dedr has {dedr.shape[0]} atom rows, expected '
-                         f'{natoms}')
+    n_local = dedr.shape[0]
+    world = 1 if group is None else dist.get_world_size(group)
+    if n_local * world != natoms:
+        raise ValueError(f'dedr has {n_local} atom rows on each of {world} '
+                         f'rank(s), expected {natoms} atoms in all')
+    offset = 0 if group is None else dist.get_rank(group) * n_local
     d = (dedr * mask[..., None].to(dedr.dtype)).contiguous()
     # masked slots name no atom: they sort past the last segment, so no
     # thread walks them (padded lists name atom 0 in every empty slot)
     dest = torch.where(mask, nbr_idx, natoms)
-    return assemble_forces_csr(d, *destination_csr(dest, natoms))
+    f = assemble_forces_csr(d, *destination_csr(dest, natoms), offset)
+    if group is None:
+        return f
+    out = f.new_empty((n_local, 3))
+    dist.reduce_scatter_tensor(out, f, group=group)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -175,15 +199,23 @@ def energy_from_ylist(cfg: SnapConfig, ulisttot, ylist, beta, beta0):
 
 def energy_forces_adjoint(cfg: SnapConfig, beta, beta0, dx, dy, dz,
                           nbr_idx, mask, with_energy: bool = True,
-                          energy_via_z: bool = False, device='cuda'):
+                          energy_via_z: bool = False, shard=None,
+                          device='cuda'):
     """The paper's refactored pipeline: U -> Y -> fused dE -> forces,
-    in ``cfg.dtype`` on ``device``."""
+    in ``cfg.dtype`` on ``device``.
+
+    shard: optional ``(group, n_shards)`` when running as one rank of an
+    atom-sharded evaluation — rows are this rank's atoms, ``nbr_idx`` is
+    global, and the force assembly reduce-scatters over ``group``.  The
+    returned energy is then this rank's partial sum (the caller
+    all-reduces it)."""
     device = resolve_device(device)
     idx = cfg.index
     dx, dy, dz, nbr_idx, mask = _inputs(cfg, dx, dy, dz, nbr_idx, mask,
                                         device)
     beta = torch.as_tensor(beta, device=device, dtype=cfg.dtype)
     natoms, nnbor = dx.shape
+    group, n_shards = shard if shard is not None else (None, 1)
     geom, dgeom, ok = _pair_geometry(cfg, dx, dy, dz, mask, grad=True)
     u, du = compute_dulist(geom, dgeom, idx, cfg.dtype)
     ut = compute_ulisttot(u, geom.sfac, ok, idx, cfg.wself)
@@ -193,7 +225,7 @@ def energy_forces_adjoint(cfg: SnapConfig, beta, beta0, dx, dy, dz,
     dedr = bs.compute_dedr(du.reshape(-1, 3, idx.idxu_max), y, atom_of_pair,
                            idx)
     forces = assemble_forces(dedr.reshape(natoms, nnbor, 3), nbr_idx, ok,
-                             natoms)
+                             natoms * n_shards, group)
     if not with_energy:
         return None, None, forces
     if energy_via_z:
@@ -203,6 +235,52 @@ def energy_forces_adjoint(cfg: SnapConfig, beta, beta0, dx, dy, dz,
     else:
         e_atom = energy_from_ylist(cfg, ut, y, beta, beta0)
     return torch.sum(e_atom), e_atom, forces
+
+
+# ---------------------------------------------------------------------------
+# baseline pipeline (paper Listing 1/2: store Z, dU, dB)
+# ---------------------------------------------------------------------------
+
+def energy_forces_baseline(cfg: SnapConfig, beta, beta0, dx, dy, dz,
+                           nbr_idx, mask, db_chunks: int = 8, shard=None,
+                           device='cuda'):
+    """Pre-refactorization formulation, in ``cfg.dtype`` on ``device``: Z
+    is stored, gathered to every pair ([P, idxz_max]) and contracted with
+    dU into dB [P, 3, ncoeff] in ``db_chunks`` slices of the COO table;
+    then dE/dr = beta . dB and E_i = beta0 + beta . B_i.  ``shard`` as in
+    :func:`energy_forces_adjoint`.
+
+    The beta contractions are elementwise products summed over the
+    coefficient axis (a reduction with a fixed order on the card), so two
+    evaluations give the same bits."""
+    device = resolve_device(device)
+    idx = cfg.index
+    dx, dy, dz, nbr_idx, mask = _inputs(cfg, dx, dy, dz, nbr_idx, mask,
+                                        device)
+    beta = torch.as_tensor(beta, device=device, dtype=cfg.dtype)
+    natoms, nnbor = dx.shape
+    group, n_shards = shard if shard is not None else (None, 1)
+    geom, dgeom, ok = _pair_geometry(cfg, dx, dy, dz, mask, grad=True)
+    u, du = compute_dulist(geom, dgeom, idx, cfg.dtype)
+    ut = compute_ulisttot(u, geom.sfac, ok, idx, cfg.wself)
+    zlist = bs.compute_zlist(ut, idx)                   # O(J^5) storage
+    atom_of_pair = torch.arange(natoms, device=device).repeat_interleave(
+        nnbor)
+    # dBlist: [P, 3, ncoeff] — the memory blow-up of paper Fig. 1
+    db = _compute_dblist_chunked(du.reshape(-1, 3, idx.idxu_max), zlist,
+                                 atom_of_pair, idx, db_chunks)
+    dedr = torch.sum(db * beta, dim=-1)
+    forces = assemble_forces(dedr.reshape(natoms, nnbor, 3), nbr_idx, ok,
+                             natoms * n_shards, group)
+    b = bs.compute_blist(ut, zlist, idx, cfg.bzero_flag)
+    e_atom = beta0 + torch.sum(b * beta, dim=-1)
+    return torch.sum(e_atom), e_atom, forces
+
+
+def _compute_dblist_chunked(du_flat, zlist, atom_of_pair, idx, nchunk):
+    """dB over ``nchunk`` slices of the COO table
+    (:func:`bispectrum.compute_dblist`)."""
+    return bs.compute_dblist(du_flat, zlist, atom_of_pair, idx, nchunk)
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +308,7 @@ def energy_forces_autodiff(cfg: SnapConfig, beta, beta0, positions,
     return e.detach(), -grad
 
 
-IMPLEMENTATIONS = ('adjoint', 'kernel')
+IMPLEMENTATIONS = ('baseline', 'adjoint', 'kernel')
 
 
 def energy_forces(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx, mask,
@@ -243,16 +321,18 @@ def energy_forces(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx, mask,
     'full': the full-plane U, Y and fused dE kernels) and ``mxu_dtype``
     (None, or ``torch.bfloat16`` to round the Y stage's operands to
     bfloat16; half layout only).  impl='adjoint' takes ``device``,
-    ``with_energy`` and ``energy_via_z`` and runs in ``cfg.dtype``.
+    ``with_energy`` and ``energy_via_z`` and runs in ``cfg.dtype``;
+    impl='baseline' takes ``device`` and ``db_chunks`` and runs in
+    ``cfg.dtype``.  Every impl takes ``shard=(group, n_shards)``.
     """
     if impl == 'adjoint':
         return energy_forces_adjoint(cfg, beta, beta0, dx, dy, dz,
                                      nbr_idx, mask, **kw)
+    if impl == 'baseline':
+        return energy_forces_baseline(cfg, beta, beta0, dx, dy, dz,
+                                      nbr_idx, mask, **kw)
     if impl == 'kernel':
         from repro_torch.kernels import ops
         return ops.snap_force_pipeline(cfg, beta, beta0, dx, dy, dz,
                                        nbr_idx, mask, **kw)
-    if impl == 'baseline':
-        raise NotImplementedError(
-            "impl='baseline' is not ported yet (ROADMAP Queue A, item 4)")
     raise ValueError(f'unknown impl {impl!r}; choose from {IMPLEMENTATIONS}')

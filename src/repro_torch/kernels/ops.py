@@ -15,8 +15,10 @@ CPU tensor.
 :func:`make_batched_force_fn` is the serving entry (port of the reference's
 ``jax.vmap`` over one request a lane): B requests side by side on one atom
 axis, one launch of each stage a batch, the Y stage with one coefficient
-row a lane.  Not ported yet: the sharded force function (ROADMAP Queue A,
-item 3).
+row a lane.  :func:`make_sharded_force_fn` is the atom-sharded entry (port
+of the reference's ``shard_map``): each rank of a process group runs a
+pipeline on its own rows, and only the exit force assembly and the energy
+cross ranks.
 """
 
 from __future__ import annotations
@@ -25,12 +27,15 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import _build
 from ..analysis.retrace import record_trace
 from ..core.geometry import sanitize_displacements
 from ..core.snap import (SnapConfig, assemble_forces, bzero_shift,
-                         energy_forces_adjoint, resolve_device)
+                         energy_forces, energy_forces_adjoint,
+                         resolve_device)
+from ..runtime.shard import group_of, rank_rows
 from .common import LANES
 from .snap_fused_de import snap_fused_de_full, snap_fused_de_full_plain
 from .snap_fused_de_half import snap_fused_de_half, snap_fused_de_half_plain
@@ -177,7 +182,8 @@ def _stages(stages, layout, cfg, beta, disp, dtype, device, mxu_dtype,
 
 
 def _pipeline(stages, layout, cfg, beta, beta0, dx, dy, dz, nbr_idx, mask,
-              dtype, device, with_energy, mxu_dtype=None):
+              dtype, device, with_energy, mxu_dtype=None, shard=None):
+    group, n_shards = shard if shard is not None else (None, 1)
     disp, ok, natoms = _to_layout(cfg, dx, dy, dz, mask, dtype, device)
     nbr_idx = torch.as_tensor(nbr_idx, device=device, dtype=torch.long)
     beta = torch.as_tensor(beta, device=device)
@@ -185,7 +191,8 @@ def _pipeline(stages, layout, cfg, beta, beta0, dx, dy, dz, nbr_idx, mask,
                                          dtype, device, mxu_dtype)
     # pipeline exit: per-pair dE back to [natoms, nnbor, 3] force assembly
     dedr_pairs = dedr[:, :3, :natoms].permute(2, 0, 1)
-    forces = assemble_forces(dedr_pairs, nbr_idx, ok, natoms)
+    forces = assemble_forces(dedr_pairs, nbr_idx, ok, natoms * n_shards,
+                             group)
     if not with_energy:
         return None, None, forces
     e_atom = energy_from_ylist_lanes(cfg, ut_r, ut_i, y_r, y_i, beta,
@@ -196,7 +203,7 @@ def _pipeline(stages, layout, cfg, beta, beta0, dx, dy, dz, nbr_idx, mask,
 def snap_force_pipeline(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx,
                         mask, dtype=torch.float32, device='cuda',
                         with_energy=True, layout: str = 'half',
-                        mxu_dtype=None):
+                        mxu_dtype=None, shard=None):
     """U -> Y -> fused dE on ``device`` in ``dtype``: (E, e_atom, forces).
 
     Inputs are [natoms, nnbor] arrays or tensors (``beta``: [ncoeff]).  On
@@ -204,11 +211,16 @@ def snap_force_pipeline(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx,
     ``device='cpu'`` the same wrappers run their plain versions.
     ``layout``: 'half' (default) or 'full' planes.  ``mxu_dtype``: None or
     ``torch.bfloat16`` (half layout only), the Y stage's operand rounding.
+    ``shard``: optional ``(group, n_shards)`` for one rank of the
+    atom-sharded path — the stages run unchanged on this rank's rows
+    (atoms already live on the lane axis), only the exit force assembly
+    reduce-scatters over ``group``; the energy is the rank's partial sum.
     """
     _check_options(layout, mxu_dtype)
     device = resolve_device(device)
     return _pipeline(_STAGES[layout], layout, cfg, beta, beta0, dx, dy, dz,
-                     nbr_idx, mask, dtype, device, with_energy, mxu_dtype)
+                     nbr_idx, mask, dtype, device, with_energy, mxu_dtype,
+                     shard)
 
 
 def plain_force_pipeline(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx,
@@ -223,6 +235,44 @@ def plain_force_pipeline(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx,
     device = resolve_device(device)
     return _pipeline(_PLAIN_STAGES[layout], layout, cfg, beta, beta0, dx, dy,
                      dz, nbr_idx, mask, dtype, device, with_energy, mxu_dtype)
+
+
+def make_sharded_force_fn(cfg: SnapConfig, beta, beta0, group=None,
+                          impl: str = 'adjoint', device='cuda', **kw):
+    """Atom-sharded force evaluation over the ranks of a process group
+    (port of the reference's ``shard_map`` over an atom mesh).  Returns
+
+        fn(dx, dy, dz, nbr_idx, mask) -> (e, e_atom_local, f_local)
+
+    Every rank passes the global [natoms, nnbor] inputs (the MD state is
+    replicated); ``natoms`` must divide by the group's size.  ``fn`` takes
+    this rank's rows (:func:`repro_torch.runtime.shard.rank_rows`), runs
+    ``energy_forces(impl=...)`` on them with ``shard=(group, world)`` — the
+    pipeline stages see only local rows, the force assembly
+    reduce-scatters the cross-rank Newton pairs — and all-reduces the
+    energy.  ``e`` is the total, on every rank; ``e_atom_local`` and
+    ``f_local`` are this rank's rows, which
+    :func:`repro_torch.runtime.shard.gather_atoms` concatenates in rank
+    order into the reference's global arrays.  ``group``: a process group,
+    or None for the default one (it must be initialized).  ``kw`` goes to
+    the pipeline (``dtype``, ``layout``, ``mxu_dtype`` for 'kernel').
+    """
+    device = resolve_device(device)
+    group = group_of(group)
+    world = dist.get_world_size(group)
+    beta = torch.as_tensor(beta, device=device)
+
+    def fn(dx, dy, dz, nbr_idx, mask):
+        offset, n_local = rank_rows(dx.shape[0], group)
+        rows = slice(offset, offset + n_local)
+        e, e_atom, f = energy_forces(
+            cfg, beta, beta0, dx[rows], dy[rows], dz[rows], nbr_idx[rows],
+            mask[rows], impl=impl, shard=(group, world), device=device, **kw)
+        e = e.reshape(1).clone()
+        dist.all_reduce(e, group=group)
+        return e[0], e_atom, f
+
+    return fn
 
 
 def _lanes_flat(t, lane_atoms):

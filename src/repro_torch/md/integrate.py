@@ -31,10 +31,12 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..analysis.retrace import record_trace
 from ..core.snap import SnapConfig, energy_forces, resolve_device
 from ..runtime.checkpoint import host_array
+from ..runtime.shard import atom_slices, gather_atoms, group_of
 from .cell_list import (FLAG_DRIFT, FLAG_ESCAPE, FLAG_NAN_FORCE,
                         FLAG_NAN_STATE, N_FLAGS, auto_cell_cap, check_flags,
                         device_neighbors, make_grid, rebuild_if)
@@ -67,9 +69,29 @@ def temperature(vel, mass=W_MASS):
     return 2.0 * ke / (3.0 * len(vel) * KB), ke
 
 
-def make_force_fn(cfg: SnapConfig, beta, beta0, impl='adjoint', **kw):
+def make_force_fn(cfg: SnapConfig, beta, beta0, impl='adjoint', shards=1,
+                  **kw):
     """fn(dx, dy, dz, nbr_idx, mask) -> (E, forces) with the physics
-    parameters bound; ``kw`` goes to :func:`energy_forces`."""
+    parameters bound; ``kw`` goes to :func:`energy_forces`.
+
+    shards > 1: the atom-sharded force over the default process group,
+    whose size must equal ``shards``
+    (:func:`repro_torch.kernels.ops.make_sharded_force_fn`); each rank
+    passes the whole replicated inputs and gets the total energy and every
+    atom's force, all-gathered in rank order."""
+    if shards > 1:
+        from ..kernels.ops import make_sharded_force_fn
+        world = dist.get_world_size(group_of())
+        if world != shards:
+            raise ValueError(f'shards={shards} but the process group has '
+                             f'{world} ranks')
+        sharded = make_sharded_force_fn(cfg, beta, beta0, impl=impl, **kw)
+
+        def force_fn(dx, dy, dz, nbr_idx, mask):
+            e, _, f = sharded(dx, dy, dz, nbr_idx, mask)
+            return e, gather_atoms(f)
+        return force_fn
+
     def force_fn(dx, dy, dz, nbr_idx, mask):
         e, _, f = energy_forces(cfg, beta, beta0, dx, dy, dz, nbr_idx, mask,
                                 impl=impl, **kw)
@@ -96,8 +118,14 @@ def run_nve(cfg: SnapConfig, beta, beta0, state: MDState, n_steps: int,
 
     skin / cell_cap / shards apply to loop='device' only: Verlet skin
     radius (Å), static cell capacity (auto-sized from the initial
-    configuration when None), and atom shards for the force pipeline (only
-    1: the sharded force is not ported yet).  max_nbors keeps its
+    configuration when None), and atom shards for the force pipeline.
+    shards > 1 needs an initialized default process group of ``shards``
+    ranks (``run_nve`` never creates one) and natoms divisible by
+    ``shards``; every rank holds the whole replicated state, the force
+    all-gathers every atom's rows, so each rank integrates the same
+    positions and logs the same thermo; only rank 0 writes MD checkpoints
+    (the others wait at a barrier), and a restore reads each rank's slice
+    of the per-atom leaves and all-gathers them.  max_nbors keeps its
     host-path meaning (capacity of the rcut sphere); the device build
     scales it to the rcut+skin shell.
 
@@ -129,15 +157,18 @@ def run_nve(cfg: SnapConfig, beta, beta0, state: MDState, n_steps: int,
                 'fn_cache was built for different physics parameters '
                 '(cfg/beta/dt/mass/impl/...); pass a fresh dict')
     if loop != 'device' and (policy is not None or checkpoint_dir
-                             or restore or fault_hook):
+                             or restore or fault_hook or shards > 1):
         raise ValueError(
-            'policy/checkpoint/restore/fault_hook are device-loop '
-            "features; use loop='device'")
+            'policy/checkpoint/restore/fault_hook/shards > 1 are '
+            "device-loop features; use loop='device'")
+    if len(state.pos) % shards:
+        raise ValueError(f'natoms={len(state.pos)} must divide by '
+                         f'shards={shards}')
     kw = dict(force_kwargs or {}, device=device)
     if impl == 'kernel':
         kw.setdefault('dtype', dtype)
     force_fn = make_force_fn(cfg, torch.as_tensor(beta, device=device),
-                             beta0, impl, **kw)
+                             beta0, impl, shards, **kw)
     if loop == 'device':
         return _run_nve_device(cfg, force_fn, state, n_steps, dt, mass,
                                max_nbors, log_every, fn_cache, skin,
@@ -338,13 +369,10 @@ def _run_nve_device(cfg, force_fn, state, n_steps, dt, mass, max_nbors,
     carry after a clean health check, and a chunk never writes the carry
     it was given, so rollback is simply "keep the previous carry".
     """
-    from .resilience import (HealthReport, RecoveryEvent,
+    from .resilience import (ATOM_KEYS, HealthReport, RecoveryEvent,
                              RecoveryExhaustedError, load_md_checkpoint,
                              regrow_grid, save_md_checkpoint)
-    if shards > 1:
-        raise NotImplementedError(
-            'shards > 1 (the atom-sharded force) is not ported yet '
-            '(ROADMAP Queue A, item 3)')
+    writer = shards == 1 or dist.get_rank() == 0
     cache = fn_cache if fn_cache is not None else {}
     n_atoms = len(state.pos)
     events = cache.setdefault('recovery_events', [])
@@ -359,14 +387,18 @@ def _run_nve_device(cfg, force_fn, state, n_steps, dt, mass, max_nbors,
     if restore:
         if not checkpoint_dir:
             raise ValueError('restore=True requires checkpoint_dir')
-        carry_np, box, grid, manifest = load_md_checkpoint(checkpoint_dir)
+        carry_np, box, grid, manifest = load_md_checkpoint(
+            checkpoint_dir,
+            rank_slice=atom_slices()[0] if shards > 1 else None)
         box = np.asarray(box, np.float64)
-        if carry_np['pos'].shape[0] != n_atoms:
-            raise ValueError(
-                f"checkpoint holds {carry_np['pos'].shape[0]} atoms but "
-                f'state has {n_atoms}')
         carry = {k: _carry_tensor(v, device, dtype)
                  for k, v in carry_np.items()}
+        if shards > 1:   # each rank read its rows; the group replicates them
+            carry.update({k: gather_atoms(carry[k]) for k in ATOM_KEYS})
+        if carry['pos'].shape[0] != n_atoms:
+            raise ValueError(
+                f"checkpoint holds {carry['pos'].shape[0]} atoms but "
+                f'state has {n_atoms}')
         state.step = int(manifest['step'])
         state.box = box
         e_ref = float(manifest['extra'].get('e_ref', 0.0))
@@ -515,11 +547,15 @@ def _run_nve_device(cfg, force_fn, state, n_steps, dt, mass, max_nbors,
         steps_since_ckpt += n_sub
         if (checkpoint_dir and checkpoint_every
                 and steps_since_ckpt >= checkpoint_every):
-            path = save_md_checkpoint(
-                checkpoint_dir, state.step + it, carry, box, grid,
-                extra=dict(dt=dt_cur, e_ref=e_ref, n_atoms=n_atoms))
-            events.append(RecoveryEvent(state.step + it, 'checkpoint',
-                                        dict(path=str(path))))
+            # the carry is replicated: rank 0 writes it for the group
+            if writer:
+                path = save_md_checkpoint(
+                    checkpoint_dir, state.step + it, carry, box, grid,
+                    extra=dict(dt=dt_cur, e_ref=e_ref, n_atoms=n_atoms))
+                events.append(RecoveryEvent(state.step + it, 'checkpoint',
+                                            dict(path=str(path))))
+            if shards > 1:
+                dist.barrier()
             steps_since_ckpt = 0
     cache['device_rebuilds'] = rebuilds
     state.pos = carry['pos'].cpu().numpy()

@@ -22,7 +22,8 @@ the host half of that contract:
   with the reference's leaf names and dtypes, so either package restores
   the other's snapshots.  Because the *whole* carry is saved, a restore
   resumes from bit-identical state: the continuation is bitwise equal to
-  the uninterrupted run.
+  the uninterrupted run.  One rank of an atom-sharded run may load only
+  its slice of the per-atom leaves (``rank_slice``).
 
 Every recovery action is recorded as a :class:`RecoveryEvent`, surfaced
 through the run's ``fn_cache['recovery_events']``.
@@ -232,6 +233,8 @@ def regrow_grid(grid: CellGrid, report: HealthReport,
 
 CARRY_KEYS = ('pos', 'vel', 'f', 'nbr_idx', 'shifts', 'mask', 'pos_ref',
               'flags')
+# the carry leaves with a leading atom axis (flags and box are global)
+ATOM_KEYS = CARRY_KEYS[:-1]
 
 
 def save_md_checkpoint(root, step: int, carry: Dict, box, grid: CellGrid,
@@ -257,17 +260,24 @@ def save_md_checkpoint(root, step: int, carry: Dict, box, grid: CellGrid,
     return path
 
 
-def load_md_checkpoint(root, step: Optional[int] = None):
+def load_md_checkpoint(root, step: Optional[int] = None,
+                       rank_slice: Optional[ckpt.RankSlice] = None):
     """Load ``(carry, box, grid, manifest)`` from the latest (or given)
     step under ``root`` (numpy leaves).  The grid is reconstructed from
     the manifest so the restored run builds the exact same static shapes
-    the saving run used — the precondition for bitwise continuation."""
+    the saving run used — the precondition for bitwise continuation.
+
+    ``rank_slice``: read only this rank's rows of the per-atom leaves
+    (:data:`ATOM_KEYS`); ``flags`` and ``box`` stay whole."""
     if step is None:
         step = ckpt.latest_step(root)
         if step is None:
             raise FileNotFoundError(
                 f'no MD checkpoint found under {root}')
-    leaves, manifest = ckpt.restore_named(ckpt.step_dir(root, step))
+    leaves, manifest = ckpt.restore_named(
+        ckpt.step_dir(root, step),
+        slices=None if rank_slice is None
+        else dict.fromkeys(ATOM_KEYS, rank_slice))
     extra = manifest['extra']
     if extra.get('kind') != 'md_carry':
         raise ValueError(

@@ -15,9 +15,10 @@ names, so a checkpoint written by either package is read by the other.
   at least one complete copy (tmp, old or final) is on disk.
 - Async save (:class:`AsyncCheckpointer`): every leaf is copied to host
   memory synchronously, the files are written on a worker thread.
-- :func:`restore` places each leaf on a device (one, or a tree of them);
-  the reference places a leaf with a sharding instead.  Placing a slice of
-  a leaf on each rank waits for the port's atom sharding.
+- :func:`restore` places each leaf on a device (one, or a tree of them)
+  and, with ``slices``, gives a rank its :class:`RankSlice` of the leaves
+  that carry the atom axis (the reference places a leaf with a sharding of
+  its mesh instead).
 
 Leaves may be numpy arrays or torch tensors (copied to the host).
 """
@@ -29,6 +30,7 @@ import os
 import shutil
 import threading
 from pathlib import Path
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
@@ -146,6 +148,23 @@ class AsyncCheckpointer:
             raise err
 
 
+@dataclass(frozen=True)
+class RankSlice:
+    """Rank ``rank``'s rows of a leaf split along its first (atom) axis
+    into ``n_shards`` equal parts, in rank order (the port's counterpart
+    of the reference's ``NamedSharding(mesh, P('data'))``)."""
+    rank: int
+    n_shards: int
+
+    def rows(self, n: int) -> slice:
+        if n % self.n_shards or not 0 <= self.rank < self.n_shards:
+            raise ValueError(f'{n} rows do not split into {self.n_shards} '
+                             f'equal slices, or rank {self.rank} is not one '
+                             'of them')
+        n_local = n // self.n_shards
+        return slice(self.rank * n_local, (self.rank + 1) * n_local)
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch or numpy dtype (or its name)."""
     if isinstance(dtype, torch.dtype):
@@ -153,17 +172,43 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
 
 
-def restore(ckpt_dir, target_tree, devices=None):
+def _per_leaf(spec, n: int, what: str) -> list:
+    """One entry of ``spec`` a leaf: ``spec`` itself for every leaf when
+    it is a single device, slice or None, else its flattened tree."""
+    if spec is None or isinstance(spec, (str, torch.device, RankSlice)):
+        return [spec] * n
+    got = [x for _, x in _flatten(spec)]
+    if len(got) != n:
+        raise ValueError(f'{len(got)} {what} for {n} leaves — structure '
+                         'mismatch')
+    return got
+
+
+def _read_leaf(path, name: str, cut: Optional[RankSlice], shape,
+               against: str):
+    """Leaf ``name``'s file, whole, or only ``cut``'s rows of it (memory-
+    mapped); its shape must be ``shape`` (the ``against``'s)."""
+    arr = np.load(path, mmap_mode=None if cut is None else 'r')
+    if list(arr.shape) != list(shape):
+        raise ValueError(f'leaf {name}: checkpoint shape {arr.shape} != '
+                         f'{against} {tuple(shape)}')
+    return arr if cut is None else np.array(arr[cut.rows(arr.shape[0])])
+
+
+def restore(ckpt_dir, target_tree, devices=None, slices=None):
     """Restore into the structure of ``target_tree`` (leaves: tensors,
-    arrays or anything with ``shape`` and ``dtype``): each leaf cast to
-    its target's dtype (torch or numpy) and placed on ``devices`` — one
-    device for every leaf, or a tree of devices shaped like
-    ``target_tree``; None gives CPU tensors.
+    arrays or anything with ``shape`` and ``dtype``, the whole logical
+    shape): each leaf cast to its target's dtype (torch or numpy) and
+    placed on ``devices`` — one device for every leaf, or a tree of devices
+    shaped like ``target_tree``; None gives CPU tensors.
+
+    ``slices``: None, or a tree shaped like ``target_tree`` of
+    :class:`RankSlice` (this rank's rows along the atom axis; only those
+    rows are read from the file) or None (the whole leaf, replicated) —
+    see :func:`repro_torch.runtime.shard.atom_slices`.
 
     The checkpoint holds logical (whole) leaves, so a checkpoint written
-    on any device restores onto any other.  The reference places each leaf
-    with a sharding of the current mesh instead; placing a slice of a leaf
-    on each rank waits for the port's atom sharding.
+    on any device, or by any number of ranks, restores onto any other.
     """
     ckpt_dir = Path(ckpt_dir)
     manifest = json.loads((ckpt_dir / 'manifest.json').read_text())
@@ -172,29 +217,27 @@ def restore(ckpt_dir, target_tree, devices=None):
         raise ValueError(
             f'checkpoint has {len(manifest["leaves"])} leaves, target has '
             f'{len(leaves)} — structure mismatch')
-    if devices is None or isinstance(devices, (str, torch.device)):
-        where = [devices or 'cpu'] * len(leaves)
-    else:
-        where = [d for _, d in _flatten(devices)]
-        if len(where) != len(leaves):
-            raise ValueError(
-                f'{len(where)} devices for {len(leaves)} leaves — '
-                f'structure mismatch')
+    where = _per_leaf(devices, len(leaves), 'devices')
+    cuts = _per_leaf(slices, len(leaves), 'slices')
     out = []
-    for (name, tgt), meta, dev in zip(leaves, manifest['leaves'], where):
-        arr = np.load(ckpt_dir / meta['file'])
-        if list(arr.shape) != list(tgt.shape):
-            raise ValueError(
-                f'leaf {name}: checkpoint shape {arr.shape} != target '
-                f'{tuple(tgt.shape)}')
+    for (name, tgt), meta, dev, cut in zip(leaves, manifest['leaves'], where,
+                                           cuts):
+        arr = _read_leaf(ckpt_dir / meta['file'], name, cut, tgt.shape,
+                         'target')
         out.append(torch.from_numpy(arr).to(
-            device=torch.device(dev), dtype=_torch_dtype(tgt.dtype)))
+            device=torch.device(dev or 'cpu'),
+            dtype=_torch_dtype(tgt.dtype)))
     return _unflatten(target_tree, iter(out))
 
 
-def restore_named(ckpt_dir) -> tuple:
+def restore_named(ckpt_dir, slices: Optional[Dict[str, RankSlice]] = None
+                  ) -> tuple:
     """``(leaves, manifest)`` from the manifest alone, ``leaves`` a dict of
     leaf name -> numpy array.
+
+    ``slices``: leaf name -> :class:`RankSlice` for the leaves of which
+    only this rank's rows are read (memory-mapped); the other leaves are
+    read whole.
 
     When the final dir is missing (or lacks its manifest) but
     ``<dir>.old`` holds a complete checkpoint — a re-save died inside the
@@ -202,6 +245,7 @@ def restore_named(ckpt_dir) -> tuple:
     is read instead.
     """
     ckpt_dir = Path(ckpt_dir)
+    slices = slices or {}
     if not (ckpt_dir / 'manifest.json').exists():
         old = ckpt_dir.parent / (ckpt_dir.name + '.old')
         if (old / 'manifest.json').exists():
@@ -209,12 +253,9 @@ def restore_named(ckpt_dir) -> tuple:
     manifest = json.loads((ckpt_dir / 'manifest.json').read_text())
     leaves = {}
     for meta in manifest['leaves']:
-        arr = np.load(ckpt_dir / meta['file'])
-        if list(arr.shape) != list(meta['shape']):
-            raise ValueError(
-                f'leaf {meta["name"]}: file shape {arr.shape} != manifest '
-                f'{meta["shape"]} — corrupt checkpoint')
-        leaves[meta['name']] = arr
+        leaves[meta['name']] = _read_leaf(
+            ckpt_dir / meta['file'], meta['name'], slices.get(meta['name']),
+            meta['shape'], 'manifest (a corrupt checkpoint)')
     return leaves, manifest
 
 

@@ -248,8 +248,9 @@ def test_energy_forces_dispatch():
                                       dtype=torch.float64)
     np.testing.assert_allclose(float(e_k), float(e_a), rtol=1e-12)
     _close(f_k.numpy(), f_a.numpy(), 1e-12)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tsnap.energy_forces(*args, impl='baseline', device=CPU)
+    e_b, _, f_b = tsnap.energy_forces(*args, impl='baseline', device=CPU)
+    np.testing.assert_allclose(float(e_b), float(e_a), rtol=1e-12)
+    _close(f_b.numpy(), f_a.numpy(), 1e-12)
     with pytest.raises(ValueError):
         tsnap.energy_forces(*args, impl='nope', device=CPU)
 

@@ -2,6 +2,7 @@
 ``chip_smoke.py`` imports JAX or the reference package, and an entry point
 asked for the card without one raises instead of running on the CPU."""
 import ast
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -39,7 +40,8 @@ def test_isolation_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {'ops.py', 'snap.py', 'integrate.py', 'chip_smoke.py',
             'serve_forces.py', 'request_queue.py', 'journal.py',
-            'chaos.py', 'checkpoint.py'} <= names
+            'chaos.py', 'checkpoint.py', 'sharding.py', 'shard.py',
+            'linear.py'} <= names
 
 
 @pytest.fixture
@@ -116,3 +118,56 @@ def test_durable_service_without_card_raises(no_card, tmp_path):
     assert srv.device.type == 'cpu' and srv.health().replayed == 0
     rep = run_chaos_soak(plan, tmp_path / 'soak', device='cpu')
     assert rep.ok and rep.n_requests == 2, rep.violations
+
+
+def test_sharded_baseline_and_fit_without_card_raise(no_card):
+    """The baseline, the sharded force and fitting default to the card
+    too."""
+    from repro_torch.fit import FitData, descriptor_rows, fit_snap_linear
+    with pytest.raises(RuntimeError, match='cuda'):
+        tsnap.energy_forces(*_args(), impl='baseline')
+    with pytest.raises(RuntimeError, match='cuda'):
+        ops.make_sharded_force_fn(*_args()[:3])
+    data = FitData(disp=np.full((2, 1, 3), 1.0), nbr_idx=np.zeros((2, 1)),
+                   mask=np.ones((2, 1), bool), e_ref=0.0,
+                   f_ref=np.zeros((2, 3)))
+    with pytest.raises(RuntimeError, match='cuda'):
+        descriptor_rows(_args()[0], data)
+    with pytest.raises(RuntimeError, match='cuda'):
+        fit_snap_linear(_args()[0], [data])
+
+
+def _isolated_rank(rank):
+    """One rank of a fresh process group: the new entry points imported
+    and run on the CPU, then the modules this process holds."""
+    from repro_torch.fit import FitData, descriptor_rows
+    from repro_torch.md.lattice import paper_box, perturb
+    torch.set_num_threads(1)
+    cfg = tsnap.SnapConfig(twojmax=2, rcut=4.7)
+    beta = np.random.default_rng(1).normal(size=cfg.ncoeff) * 5e-3
+    pos, box = paper_box(54)
+    pos = perturb(pos, 0.02, seed=2)
+    state = tmd.MDState(pos=pos, vel=tmd.init_velocities(54, 300.0), box=box)
+    _, thermo = tmd.run_nve(cfg, beta, 0.0, state, 2, impl='baseline',
+                            loop='device', skin=0.4, log_every=1, shards=2,
+                            device='cpu')
+    dx = np.full((2, 1), 1.0)
+    e, _, f = ops.make_sharded_force_fn(cfg, beta, 0.0, device='cpu')(
+        torch.as_tensor(dx), torch.as_tensor(dx), torch.as_tensor(dx),
+        torch.zeros((2, 1), dtype=torch.long),
+        torch.ones((2, 1), dtype=torch.bool))
+    rows = descriptor_rows(cfg, FitData(
+        disp=np.full((2, 1, 3), 1.0), nbr_idx=np.array([[1], [0]]),
+        mask=np.ones((2, 1), bool), e_ref=0.0, f_ref=np.zeros((2, 3))),
+        device='cpu')
+    assert len(thermo) == 2 and np.isfinite(float(e)) and f.shape == (1, 3)
+    assert np.isfinite(rows[1]).all()
+    return sorted(m for m in sys.modules if _forbidden(m))
+
+
+def test_new_entry_points_import_nothing_of_the_reference():
+    """fit, make_sharded_force_fn and run_nve(shards=2, impl='baseline'),
+    run in two spawned ranks (fresh processes that import only this module
+    and the port), leave no jax or repro module in ``sys.modules``."""
+    from repro_torch.launch.sharding import spawn_ranks
+    assert spawn_ranks(_isolated_rank, 2) == [[], []]

@@ -93,7 +93,9 @@ def test_run_nve_rejects_unported_loops():
     pos, box, vel, beta = _start()
     state = tmd.MDState(pos=pos, vel=vel, box=box)
     cfg = tsnap.SnapConfig(twojmax=2, rcut=4.7)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # shards > 1 runs only inside a process group of that size, which
+    # run_nve never creates (tests/test_torch_sharded.py runs it in one)
+    with pytest.raises(RuntimeError, match='process group'):
         tmd.run_nve(cfg, beta[:cfg.ncoeff], 0.0, state, 1, loop='device',
                     shards=2, device='cpu')
     with pytest.raises(ValueError):
