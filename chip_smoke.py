@@ -80,11 +80,20 @@ and dB stored) at snap-2j8 in float64 and float32 and at 2J = 14 in
 float32 against the float64 adjoint, twice bitwise, times it beside the
 adjoint and the half kernel path (CUDA events, median of 5) with each
 one's peak ``torch.cuda.max_memory_allocated``, and runs 4 device-loop
-steps of it against the adjoint.  The fit phase is
-``examples/fit_snap.py``'s self-consistency fit at snap-2j8 width (4
-perturbed 2000-atom cells labelled by the float64 adjoint, 40-wide lists,
+steps of it against the adjoint.  The fit phase is the fit example's
+``repro_torch.examples.fit_snap.fit`` at snap-2j8 width (4 perturbed
+2000-atom cells labelled by the float64 adjoint, 40-wide lists,
 ``repro_torch.fit.fit_snap_linear``, a held-out cell) with the time and
-peak memory of ``descriptor_rows`` a cell.  At
+peak memory of ``descriptor_rows`` a cell.  The analysis phase runs the
+static-analysis registry (``python -m repro_torch.analysis``'s entries)
+on the card with the launch counters set to 0 before and read after:
+each entry built twice and called twice, the second call under the op and
+launch recorders and CUDA sync debug mode, held to the ``cuda`` section
+of ``src/repro_torch/analysis/budgets.json``; its sharded entry runs in
+the sharded phase's two ranks.  The examples phase runs
+``repro_torch.examples.md_nve --natoms 2000 --twojmax 8 --loop device
+--impl kernel``, ``quickstart`` and ``serve_forces --impl kernel`` on the
+card with the launch counters set to 0 before and read after.  At
 2J = 14 (float32) it holds the half and full kernels against their plain
 versions and times the half-plane pipeline (median of 5 evaluations after
 warm-up).
@@ -105,7 +114,13 @@ durability: completed results vs solo evaluations bitwise, on both impl
 paths; sharded vs unsharded (the reference's bars): 1e-12 relative in
 float64, 1e-5 in float32, device-loop T, PE and Etot 1e-9; baseline vs the
 float64 adjoint 1e-10 in float64, 1e-5 in float32, its MD PE 1e-9; the
-held-out fit relE < 1e-6 and max |dF| < 1e-4 eV/A.
+held-out fit relE < 1e-6 and max |dF| < 1e-4 eV/A; analysis: no
+unallowlisted finding (the sharded entry's gloo collectives allowlisted
+by name), no host sync, one launch of each kernel of an entry's path a
+call, every ``cuda`` budget met; examples: md_nve's relative drift
+<= 1e-5, quickstart's float32 kernel energy within 1e-5 of the adjoint's
+and the baseline's within 1e-10, every serve_forces request an outcome,
+the poisoned ones typed errors.
 Times are medians of CUDA-event timings after
 warm-up (``ms``: one call between two events, wrapper host time
 included) and, for each kernel and library call, device time alone
@@ -140,6 +155,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / 'src'))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# one operation and byte count for the bounds here and the static analysis
+from repro_torch.analysis.cost import (bound, de_flops, u_flops,  # noqa: E402
+                                       y_flops)
+from repro_torch.analysis.op_passes import first_sync  # noqa: E402
+
 NATOMS, NNBOR, RCUT = 2000, 26, 4.7
 TOL = {torch.float32: 1e-5, torch.float64: 1e-10}
 BF16_TOL, BF16_ADJ_TOL = 1e-3, 1e-2
@@ -151,10 +171,6 @@ SKIN, DEVICE_NBORS, DEVICE_STEPS, DEVICE_LOG = 0.4, 40, 20, 10
 # a skin small enough that rebuilds fire in 10 steps at 300 K (the fastest
 # atom moves ~0.0023 A a step: half the skin in ~2 steps)
 SMALL_SKIN, SMALL_STEPS, THERMO_TOL = 0.01, 10, 1e-9
-# H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): HBM3 3.35 TB/s,
-# 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor cores
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 CSRC = 'src/repro_torch/kernels/csrc/'
 KERNELS = {   # name: (source, pl.pallas_call site it replaces)
     'snap_u_half': (CSRC + 'snap_u.cu', 'src/repro/kernels/snap_u.py:144'),
@@ -228,12 +244,6 @@ SHARD_PATHS = {
 BASELINE_CASES, BASELINE_REPS = ((8, (torch.float64, torch.float32)),
                                  (14, (torch.float32,))), 5
 BASELINE_MD_STEPS = 4
-# the fit phase: the example's self-consistency fit at snap-2j8 width
-# (examples/fit_snap.py): 4 cells perturbed 0.05 + 0.04 s A (seed s),
-# 40-wide lists, beta of seed 7 x 1e-2, beta0 -8.9; held-out cell seed 99,
-# 0.08 A; its bars
-FIT_CELLS, FIT_NBORS, FIT_BETA0, FIT_HELD_OUT = 4, 40, -8.9, (99, 0.08)
-FIT_REL_E, FIT_MAX_DF = 1e-6, 1e-4
 SMS = 132                    # H100 SXM
 STACK_MAX = 1024             # bytes of stack frame a fused dE kernel may use
 DEVICE_REPS = 20             # K of device_ms
@@ -357,48 +367,6 @@ def rel_err(a, b):
     num = max(float((x - y).abs().max()) for x, y in zip(a, b))
     den = max(float(y.abs().max()) for y in b)
     return num, num / den
-
-
-# -- work counts for the bound: each input read once, each output written
-# once; operations counted from each kernel's arithmetic per element ------
-
-def _levels(twojmax):
-    for j in range(1, twojmax + 1):
-        rows = j // 2 + 1
-        weighted = sum(1 for mb in range(rows) for ma in range(j + 1)
-                       if 2 * mb < j or 2 * ma <= j)
-        yield j, rows, weighted
-
-
-def u_flops(twojmax, pairs, atoms=0, n_mirror=0):
-    # geometry ~40; per recursion term 10 (conj mult, coefficient, add);
-    # per half element 4 to accumulate sfac * u; the full layout adds the
-    # mirror fill, 2 per mirror element per atom
-    per = 40 + 1 + sum(10 * 2 * j * rows + 4 * rows * (j + 1)
-                       for j, rows, _ in _levels(twojmax))
-    return per * pairs + 2 * n_mirror * atoms
-
-
-def y_flops(nnz, atoms):
-    # 6 complex product, 2 coef, 2 add; sigma (+-1) is a sign-bit flip,
-    # no multiply
-    return 10 * nnz * atoms
-
-
-def de_flops(twojmax, pairs):
-    # geometry + gradient ~80; per term 10 for u and 3 x 18 for the
-    # tangents; per weighted element 2 + 3 x 10 for the contraction (the
-    # same in both layouts: the full kernel carries the left rows, the
-    # weight is 0 on the others)
-    per = 80 + 4 + sum((10 + 54) * 2 * j * rows + 32 * w
-                       for j, rows, w in _levels(twojmax))
-    return per * pairs
-
-
-def bound(nbytes, flops, dtype):
-    t_mem, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype]
-    return (max(t_mem, t_ops) * 1e3,
-            'bytes' if t_mem >= t_ops else 'operations')
 
 
 def card_identity():
@@ -579,20 +547,6 @@ def device_inputs(disp, nbr_idx, mask, dev):
             torch.as_tensor(mask, device=dev))
 
 
-def syncs(fn):
-    """The error of the first host synchronization ``fn`` makes, else
-    None (CUDA sync debug mode)."""
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode('error')
-    try:
-        fn()
-        return None
-    except RuntimeError as e:
-        return str(e).splitlines()[0]
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-
-
 # tag: (dtype, layout, mxu_dtype, bar vs plain pipeline, bar vs adjoint).
 # bf16 vs its plain pipeline takes the bf16 bar: the kernel and the plain
 # U planes differ in their last float32 bits, which moves a bfloat16
@@ -653,7 +607,7 @@ def pipeline_phase(cfg, beta, nbr_idx, mask, disp, dev):
             check(torch.equal(f_2, f_k) and torch.equal(e_2, e_k),
                   f'pipeline {tag}: two evaluations give equal forces and '
                   'energies (bitwise)')
-            err = syncs(lambda: ops.snap_force_pipeline(*args, **kw))
+            err = first_sync(lambda: ops.snap_force_pipeline(*args, **kw))
             check(err is None, f'pipeline {tag}: no host synchronization '
                   f'in an evaluation ({err or "none raised"})')
         ms = time_ms(lambda: ops.snap_force_pipeline(*args, **kw), reps=10)
@@ -996,7 +950,7 @@ def device_loop_phase(cfg, beta, pos, box, dev):
         args = (pos_t, vel_t, f, box_t, ni, sh, ms, pos_t, _full_flags(fl),
                 0.0)
         out = chunk(*args)   # warm-up
-        err = syncs(lambda: chunk(*args))
+        err = first_sync(lambda: chunk(*args))
         check(err is None, f'device loop: no host synchronization in a '
               f'{DEVICE_LOG}-step chunk (skin {skin}, guards '
               f'{"on" if policy else "off"}, {int(out[-1])} rebuilds in it; '
@@ -1350,7 +1304,7 @@ def serve_service_checks(table, dev):
     arrays = pack_batch(bucket, [reqs[0], reqs[3]], dev)
     fn = serve_fn(bucket, dev)
     fn(**arrays)
-    err = syncs(lambda: fn(**arrays))
+    err = first_sync(lambda: fn(**arrays))
     check(err is None, f'serve: no host synchronization in a batched '
           f'evaluation ({err or "none raised"})')
     h = srv.health()
@@ -1710,7 +1664,7 @@ def soak_wide(table, dev, workdir):
     fn = lives[-1]._fn(bucket, 'kernel')
     arrays = pack_batch(bucket, reqs, dev)
     fn(**arrays)
-    err = syncs(lambda: fn(**arrays))
+    err = first_sync(lambda: fn(**arrays))
     check(err is None, f'durability: no host synchronization in a batched '
           f'evaluation of {len(reqs)} replayed requests ({bucket.key}) on '
           f'the restored server\'s function ({err or "none raised"})')
@@ -1967,6 +1921,21 @@ def sharded_rank(rank, dev, cfg, beta, disp, nbr_idx, mask, pos, box, vel,
     st, tail = run_nve(cfg, beta, 0.0, state(), DEVICE_STEPS // 2,
                        checkpoint_dir=ckpt_dir, restore=True, **kw)
     out['tail'], out['tail_step'] = tail, st.step
+    # the analysis suite's sharded entry, in step on both ranks
+    from repro_torch.analysis.budgets import DEFAULT_PATH, load_budgets
+    from repro_torch.analysis.registry import default_registry
+    from repro_torch.analysis.runner import run_registry
+    dist.barrier()
+    (ep,) = [e for e in default_registry(dev)
+             if e.name == 'force.torch.sharded']
+    report = run_registry([ep], budgets=load_budgets(
+        DEFAULT_PATH, torch.device(dev).type))
+    out['analysis'] = dict(
+        errors=[str(f) for f in report.all_findings()
+                if f.severity == 'error'],
+        suppressed=[f.detail.get('op', f.code)
+                    for f in report.entries[0].suppressed],
+        metrics=report.entries[0].metrics)
     dist.barrier()
     return out
 
@@ -2083,6 +2052,15 @@ def sharded_phase(cfg, beta, pos, box, nbr_idx, mask, disp, dev, straight):
               f'step {k} read as rank slices and continued {k} steps on '
               f'{SHARDS} ranks: thermo vs the straight run max rel diff '
               f'{terr:.3e} (bar {THERMO_TOL:.0e})')
+    for r in ranks:
+        an = r['analysis']
+        check(not an['errors'] and an['metrics'].get('launches') == 1,
+              f'analysis force.torch.sharded rank {r["rank"]}: '
+              f'{len(an["errors"])} unallowlisted finding(s) or budget '
+              f'error(s) of the cuda section {an["errors"][:3]}, '
+              f'{an["metrics"].get("launches")} launch a call (the '
+              f'assembly), peak bytes {an["metrics"].get("peak_bytes")}; '
+              f'allowlisted by name: {sorted(set(an["suppressed"]))}')
     print(f'     sharded device loop: {r0["md_ms_step"]:.3f} / '
           f'{ranks[1]["md_ms_step"]:.3f} ms per step on rank 0 / 1 '
           f'({DEVICE_STEPS} steps, chunk function cached, host clock, ends '
@@ -2185,30 +2163,19 @@ def baseline_phase(dev):
 
 
 def fit_phase(dev):
-    """The example's self-consistency fit at snap-2j8 width on the card:
-    FIT_CELLS perturbed 2000-atom cells labelled by the float64 adjoint,
-    ``fit_snap_linear`` (dB rows on the card, the ridge solve on the host
-    in float64), then a held-out cell; ms and peak memory of
-    ``descriptor_rows`` per cell."""
-    from repro_torch.core.snap import SnapConfig, energy_forces_adjoint
-    from repro_torch.fit import FitData, descriptor_rows, fit_snap_linear
-    from repro_torch.md.lattice import paper_box, perturb
-    from repro_torch.md.neighbor import cell_neighbors
+    """The fit example (``repro_torch.examples.fit_snap.fit``) at snap-2j8
+    width on the card: 4 perturbed 2000-atom cells labelled by the
+    float64 adjoint, ``fit_snap_linear`` (dB rows on the card, the ridge
+    solve on the host in float64), then a held-out cell, held to the
+    example's bars; ms and peak memory of ``descriptor_rows`` per cell."""
+    from repro_torch.core.snap import SnapConfig
+    from repro_torch.examples import fit_snap
+    from repro_torch.fit import descriptor_rows, fit_snap_linear
     cfg = SnapConfig(twojmax=8, rcut=RCUT)
-    beta_true = np.random.default_rng(7).normal(size=cfg.ncoeff) * 1e-2
-
-    def cell(seed, scale, beta=beta_true, beta0=FIT_BETA0):
-        pos, box = paper_box(NATOMS)
-        pos = perturb(pos, scale, seed=seed)
-        nbr, mask, disp, _ = cell_neighbors(pos, box, RCUT,
-                                            max_nbors=FIT_NBORS)
-        e, _, f = energy_forces_adjoint(cfg, beta, beta0, disp[..., 0],
-                                        disp[..., 1], disp[..., 2], nbr,
-                                        mask, device=dev)
-        return FitData(disp=disp, nbr_idx=nbr, mask=mask, e_ref=float(e),
-                       f_ref=f.cpu().numpy())
-
-    data = [cell(s, 0.05 + 0.04 * s) for s in range(FIT_CELLS)]
+    t0 = time.perf_counter()
+    out = fit_snap.fit(cfg, NATOMS, dev)
+    example_s = time.perf_counter() - t0
+    data = out['data']
     times, peaks = [], []
     for d in data:
         torch.cuda.synchronize()
@@ -2219,24 +2186,121 @@ def fit_phase(dev):
         times.append((time.perf_counter() - t0) * 1e3)
         peaks.append(peak_gb())
     t0 = time.perf_counter()
-    beta0, beta, diag = fit_snap_linear(cfg, data, device=dev)
+    fit_snap_linear(cfg, data, device=dev)
     fit_s = time.perf_counter() - t0
-    held = cell(*FIT_HELD_OUT)
-    hat = cell(*FIT_HELD_OUT, beta=beta, beta0=beta0)
-    rel_e = abs(hat.e_ref - held.e_ref) / abs(held.e_ref)
-    max_df = float(np.max(np.abs(hat.f_ref - held.f_ref)))
-    check(rel_e < FIT_REL_E and max_df < FIT_MAX_DF,
-          f'fit snap-2j8: {FIT_CELLS} cells x {NATOMS} atoms, rms E '
-          f'{diag["rms_e"]:.3e} eV, rms F {diag["rms_f"]:.3e} eV/A; held-out '
-          f'relE {rel_e:.3e} (bar {FIT_REL_E:.0e}), max |dF| {max_df:.3e} '
-          f'eV/A (bar {FIT_MAX_DF:.0e})')
+    rel_e, max_df = out['rel_e'], out['max_df']
+    check(rel_e < fit_snap.MAX_REL_E and max_df < fit_snap.MAX_DF,
+          f'fit snap-2j8 (examples/fit_snap.fit): {len(data)} cells x '
+          f'{NATOMS} atoms, rms E {out["rms_e"]:.3e} eV, rms F '
+          f'{out["rms_f"]:.3e} eV/A; held-out relE {rel_e:.3e} (bar '
+          f'{fit_snap.MAX_REL_E:.0e}), max |dF| {max_df:.3e} eV/A (bar '
+          f'{fit_snap.MAX_DF:.0e})')
     print(f'     fit: descriptor_rows {statistics.median(times):.1f} ms a '
-          f'cell (median of {FIT_CELLS}, host clock incl. the readback; '
+          f'cell (median of {len(data)}, host clock incl. the readback; '
           f'{", ".join(f"{t:.1f}" for t in times)}), peak '
           f'{max(peaks):.3f} GB; fit_snap_linear {fit_s:.2f} s for '
-          f'{FIT_CELLS} cells', flush=True)
-    return dict(rows_ms=times, rows_peak_gb=peaks, fit_s=fit_s, rel_e=rel_e,
-                max_df=max_df)
+          f'{len(data)} cells; the whole example {example_s:.1f} s',
+          flush=True)
+    return dict(rows_ms=times, rows_peak_gb=peaks, fit_s=fit_s,
+                example_s=example_s, rel_e=rel_e, max_df=max_df)
+
+
+def analysis_phase(dev):
+    """The static-analysis registry on the card (``python -m
+    repro_torch.analysis``'s run): every entry built twice, called twice,
+    the second call under the op and launch recorders and CUDA sync
+    debug mode, held to the ``cuda`` budgets of ``budgets.json``, with
+    the launch counters set to 0 before and read after."""
+    from repro_torch.analysis.budgets import DEFAULT_PATH, load_budgets
+    from repro_torch.analysis.registry import default_registry
+    from repro_torch.analysis.runner import run_registry
+    from repro_torch.kernels import ops
+    budgets = load_budgets(DEFAULT_PATH, 'cuda')
+    check(bool(budgets and budgets.get('entries')),
+          f'analysis: the cuda section of {DEFAULT_PATH} is checked in')
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = run_registry(default_registry(dev), budgets=budgets)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    errors = [f for f in report.all_findings() if f.severity == 'error']
+    syncs = [f for f in report.all_findings() if f.pass_name == 'host_sync']
+    launch = [f for f in report.all_findings() if f.code == 'launch-count']
+    check(not errors, f'analysis registry: {len(report.entries)} entries, '
+          f'{len(errors)} unallowlisted finding(s) '
+          f'{[str(f) for f in errors][:4]}')
+    check(not syncs and not launch,
+          'analysis registry: no host sync (op recorder and CUDA sync debug '
+          'mode) and one launch of each kernel of the path a call in every '
+          f'entry ({len(syncs)} sync, {len(launch)} launch-count '
+          'finding(s))')
+    metrics = {}
+    for e in report.entries:
+        m = e.metrics
+        metrics[e.entry] = {k: m[k] for k in (
+            'launches', 'plane_bytes', 'peak_bytes', 'total_bytes',
+            'pad_waste_frac', 'broadcast_bytes_max', 'compile_count')
+            if k in m}
+        print(f'     analysis {e.entry}: launches {m.get("launches")}, '
+              f'plane bytes {m.get("plane_bytes", "-")}, peak bytes '
+              f'{m.get("peak_bytes", "-")}, bytes allocated '
+              f'{m.get("total_bytes")}, pad waste '
+              f'{m.get("pad_waste_frac", 0):.4f}; suppressed '
+              f'{[f.detail.get("op", f.code) for f in e.suppressed]}',
+              flush=True)
+    print(f'     analysis: {wall:.1f} s for {len(report.entries)} entries; '
+          f'launches {counts}', flush=True)
+    return counts, metrics
+
+
+def examples_phase(dev):
+    """The four examples as a user runs them, on the card, with the
+    launch counters set to 0 before and read after: md_nve at snap-2j8
+    width (``--natoms 2000 --twojmax 8 --loop device --impl kernel``,
+    relative NVE drift <= MD_DRIFT_TOL), quickstart (its f32 kernel energy
+    within 1e-5 of the adjoint's, the baseline's within 1e-10), and
+    serve_forces with the kernel path (every request reaches an outcome,
+    the poisoned ones a typed error).  The fit example runs in the fit
+    phase."""
+    from repro_torch.examples import md_nve, quickstart, serve_forces
+    from repro_torch.kernels import ops
+    from repro_torch.launch.request_queue import ServiceError
+    from repro_torch.launch.serve_forces import ForceResult
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    md = md_nve.main(['--natoms', str(NATOMS), '--twojmax', '8', '--loop',
+                      'device', '--impl', 'kernel'])
+    md_s = time.perf_counter() - t0
+    check(np.isfinite(md['rel_drift']) and md['rel_drift'] <= MD_DRIFT_TOL,
+          f'examples md_nve --natoms {NATOMS} --twojmax 8 --loop device '
+          f'--impl kernel: {md["thermo"][-1]["step"]} steps, relative NVE '
+          f'drift {md["rel_drift"]:.3e} (bar {MD_DRIFT_TOL:.0e}), '
+          f'{md["rebuilds"]} rebuilds, {md_s:.1f} s')
+    qs = quickstart.main([])
+    e = qs['energy']
+    d_kernel = abs(e['kernel'] - e['adjoint']) / abs(e['adjoint'])
+    d_base = abs(e['baseline'] - e['adjoint']) / abs(e['adjoint'])
+    check(d_kernel <= TOL[torch.float32] and d_base <= TOL[torch.float64],
+          f'examples quickstart (2J=8, 54 atoms): kernel (f32) vs adjoint '
+          f'rel diff {d_kernel:.3e} (bar {TOL[torch.float32]:.0e}), '
+          f'baseline vs adjoint {d_base:.3e} (bar '
+          f'{TOL[torch.float64]:.0e})')
+    sv = serve_forces.main(['--impl', 'kernel'])
+    ok = all((isinstance(res, ServiceError) if i in sv['plan']
+              else isinstance(res, ForceResult) and np.isfinite(res.energy))
+             for i, res in enumerate(sv['outcomes'].values()))
+    check(ok and sv['health']['degraded_steps'] == 0,
+          f'examples serve_forces --impl kernel: {len(sv["outcomes"])} '
+          f'requests, every one an outcome ({sv["health"]["served"]} '
+          f'served, {sv["health"]["failed"]} poisoned failed typed), '
+          f'{sv["health"]["degraded_steps"]} degraded steps')
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f'     examples: launches {counts}', flush=True)
+    return counts, dict(md_rel_drift=md['rel_drift'], md_s=md_s,
+                        quickstart=e, serve=sv['health'])
 
 
 def main():
@@ -2292,6 +2356,17 @@ def main():
     big = big_phase(dev)
     print('baseline: ' + json.dumps(baseline_phase(dev)), flush=True)
     print('fit: ' + json.dumps(fit_phase(dev)), flush=True)
+    analysis_counts, analysis_numbers = analysis_phase(dev)
+    print('analysis: ' + json.dumps(analysis_numbers), flush=True)
+    example_counts, example_numbers = examples_phase(dev)
+    print('examples: ' + json.dumps(example_numbers, default=str),
+          flush=True)
+    # each phase of this slice launched every kernel of its path
+    check(all(analysis_counts[k] > 0 for k in KERNELS),
+          f'analysis: every kernel launched ({analysis_counts})')
+    check(all(example_counts[k] > 0 for k in PATHS['device']),
+          f'examples: every kernel of the device-loop and serving path '
+          f'launched ({example_counts})')
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2306,7 +2381,9 @@ def main():
                      dtype=dt, path=path,
                      launches_device_loop=runs['device'][0][name],
                      launches_serve=serve_counts[name],
-                     launches_durability=durable_counts[name])
+                     launches_durability=durable_counts[name],
+                     launches_analysis=analysis_counts[name],
+                     launches_examples=example_counts[name])
         other, sfx = ((torch.float32, 'f32') if dt == 'float64'
                       else (torch.float64, 'f64'))
         entry.update({f'{k}_{sfx}': v

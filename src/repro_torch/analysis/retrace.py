@@ -1,6 +1,7 @@
 """Build accounting for the port's entry points.
 
-Copy of ``record_trace`` / ``trace_count`` from ``repro.analysis.retrace``.
+Copy of ``record_trace``, ``trace_count`` and ``assert_trace_count`` from
+``repro.analysis.retrace``.
 The reference counts jit traces; PyTorch runs eagerly, so the port counts
 what takes a trace's place: each build of an entry's function (a serving
 bucket's batched force function, the MD device loop's chunk function).
@@ -29,3 +30,14 @@ def trace_count(counter: Optional[Dict]) -> int:
     if counter is None:
         return 0
     return int(counter.get(TRACE_KEY, 0))
+
+
+def assert_trace_count(counter: Optional[Dict], expect: int,
+                       what: str = 'entry point') -> None:
+    """Typed assertion used by tests and the analysis runner."""
+    got = trace_count(counter)
+    if got != expect:
+        raise AssertionError(
+            f'{what}: expected {expect} build(s), counted {got} — the '
+            f'entry rebuilt its function (a cache keyed on something that '
+            f'changes per call)')

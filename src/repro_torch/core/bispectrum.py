@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .indices import SnapIndex
+from .tables import device_table
 
 _CHUNK_BYTES = 256 * 1024 * 1024  # peak size of a gathered COO intermediate
 
@@ -25,8 +26,19 @@ def _auto_chunks(natoms: int, nnz: int, itemsize: int = 16) -> int:
     return max(1, int(np.ceil(natoms * nnz * itemsize / _CHUNK_BYTES)))
 
 
-def _long(a, device):
-    return torch.as_tensor(a, dtype=torch.long, device=device)
+def _long(idx, attr, device):
+    return device_table(idx, attr, torch.long, device)
+
+
+def _y_dest(idx):
+    """The Y scatter's destination of each COO entry: ``jjz -> jju``."""
+    return idx.idxz_jju[idx.z_coo_dest]
+
+
+def bzero_table(idx):
+    """bzero of each bispectrum component (read it through
+    :func:`~repro_torch.core.tables.device_table`)."""
+    return np.array([idx.bzero[t[2]] for t in idx.idxb_triples])
 
 
 def _add_columns(out, dest, src):
@@ -47,30 +59,32 @@ def _chunked_scatter_products(ut, src1, src2, coef, dest, out_width,
     """out[n, dest] += coef * ut[n, src1] * ut[n, src2], chunked over the
     COO axis to bound the [natoms, chunk] intermediates.
 
-    coef: real tensor [nnz] (or [natoms, nnz]) on ``ut``'s device.
+    src1, src2, dest: long tensors [nnz]; coef: real tensor [nnz] (or
+    [natoms, nnz]); all on ``ut``'s device.
     """
     dev = ut.device
     n = ut.shape[0]
     out = torch.zeros((n, out_width), dtype=ut.dtype, device=dev)
-    nnz = len(src1)
+    nnz = src1.shape[0]
     if nchunk is None:
         nchunk = _auto_chunks(n, nnz)
     bounds = np.linspace(0, nnz, nchunk + 1).astype(int)
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         if hi == lo:
             continue
-        prod = (ut[:, _long(src1[lo:hi], dev)] * ut[:, _long(src2[lo:hi], dev)]
+        prod = (ut[:, src1[lo:hi]] * ut[:, src2[lo:hi]]
                 * coef[..., lo:hi].to(ut.real.dtype))
-        _add_columns(out, _long(dest[lo:hi], dev), prod)
+        _add_columns(out, dest[lo:hi], prod)
     return out
 
 
 def compute_zlist(ulisttot, idx: SnapIndex, nchunk=None):
     """Z matrices, complex [natoms, idxz_max] (LAMMPS compute_zi)."""
-    cg = torch.as_tensor(idx.z_coo_cg, device=ulisttot.device)
+    dev = ulisttot.device
+    cg = device_table(idx, 'z_coo_cg', ulisttot.real.dtype, dev)
     return _chunked_scatter_products(
-        ulisttot, idx.z_coo_src1, idx.z_coo_src2, cg, idx.z_coo_dest,
-        idx.idxz_max, nchunk)
+        ulisttot, _long(idx, 'z_coo_src1', dev), _long(idx, 'z_coo_src2', dev),
+        cg, _long(idx, 'z_coo_dest', dev), idx.idxz_max, nchunk)
 
 
 def compute_blist(ulisttot, zlist, idx: SnapIndex, bzero_flag=True):
@@ -80,15 +94,14 @@ def compute_blist(ulisttot, zlist, idx: SnapIndex, bzero_flag=True):
     """
     dev = ulisttot.device
     rdt = ulisttot.real.dtype
-    u = ulisttot[:, _long(idx.b_coo_usrc, dev)]
-    z = zlist[:, _long(idx.b_coo_zsrc, dev)]
-    w = torch.as_tensor(idx.b_coo_w, dtype=rdt, device=dev)
+    u = ulisttot[:, _long(idx, 'b_coo_usrc', dev)]
+    z = zlist[:, _long(idx, 'b_coo_zsrc', dev)]
+    w = device_table(idx, 'b_coo_w', rdt, dev)
     contrib = w * (u.real * z.real + u.imag * z.imag)
     b = torch.zeros((ulisttot.shape[0], idx.idxb_max), dtype=rdt, device=dev)
-    b = _add_columns(b, _long(idx.b_coo_dest, dev), contrib)
+    b = _add_columns(b, _long(idx, 'b_coo_dest', dev), contrib)
     if bzero_flag:
-        shift = np.array([idx.bzero[t[2]] for t in idx.idxb_triples])
-        b = b - torch.as_tensor(shift, dtype=rdt, device=dev)
+        b = b - device_table(idx, bzero_table, rdt, dev)
     return b
 
 
@@ -103,13 +116,13 @@ def compute_ylist(ulisttot, beta, idx: SnapIndex, nchunk=None):
     dev = ulisttot.device
     rdt = ulisttot.real.dtype
     beta = beta.to(device=dev, dtype=rdt)
-    betaj = torch.as_tensor(idx.y_fac, dtype=rdt, device=dev) * \
-        beta[..., _long(idx.y_jjb, dev)]
-    coef = (torch.as_tensor(idx.z_coo_cg, dtype=rdt, device=dev)
-            * betaj[..., _long(idx.z_coo_dest, dev)])
+    betaj = device_table(idx, 'y_fac', rdt, dev) * \
+        beta[..., _long(idx, 'y_jjb', dev)]
+    coef = (device_table(idx, 'z_coo_cg', rdt, dev)
+            * betaj[..., _long(idx, 'z_coo_dest', dev)])
     return _chunked_scatter_products(
-        ulisttot, idx.z_coo_src1, idx.z_coo_src2, coef,
-        idx.idxz_jju[idx.z_coo_dest], idx.idxu_max, nchunk)
+        ulisttot, _long(idx, 'z_coo_src1', dev), _long(idx, 'z_coo_src2', dev),
+        coef, _long(idx, _y_dest, dev), idx.idxu_max, nchunk)
 
 
 def compute_dblist(du_pairs, zlist, atom_of_pair, idx: SnapIndex,
@@ -130,17 +143,18 @@ def compute_dblist(du_pairs, zlist, atom_of_pair, idx: SnapIndex,
         nchunk = _auto_chunks(3 * n_pairs, nnz, du_pairs.element_size())
     out = torch.zeros((n_pairs, 3, idx.idxb_max), dtype=rdt, device=dev)
     z_at = zlist[atom_of_pair]                                 # [P, idxz]
-    w = torch.as_tensor(idx.db_coo_w, dtype=rdt, device=dev)
+    w = device_table(idx, 'db_coo_w', rdt, dev)
+    zsrc, dusrc, dest = (_long(idx, a, dev) for a in (
+        'db_coo_zsrc', 'db_coo_dusrc', 'db_coo_dest'))
     bounds = np.linspace(0, nnz, nchunk + 1).astype(int)
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         if hi == lo:
             continue
-        z = z_at[:, _long(idx.db_coo_zsrc[lo:hi], dev)]        # [P, c]
-        du = du_pairs[:, :, _long(idx.db_coo_dusrc[lo:hi], dev)]
+        z = z_at[:, zsrc[lo:hi]]                                # [P, c]
+        du = du_pairs[:, :, dusrc[lo:hi]]
         contrib = w[lo:hi] * (du.real * z.real[:, None, :]
                               + du.imag * z.imag[:, None, :])
-        _add_columns(out.view(-1, idx.idxb_max),
-                     _long(idx.db_coo_dest[lo:hi], dev),
+        _add_columns(out.view(-1, idx.idxb_max), dest[lo:hi],
                      contrib.reshape(-1, hi - lo))
     return out
 
@@ -151,8 +165,8 @@ def compute_dedr(du_pairs, ylist, atom_of_pair, idx: SnapIndex):
     dE_i/dr_k = 2 * sum_half w * Re(conj(dU) Y);  real [P, 3].
     """
     y = ylist[atom_of_pair]                              # [P, idxu]
-    w = torch.as_tensor(idx.dedr_weight, dtype=du_pairs.real.dtype,
-                        device=du_pairs.device)
+    w = device_table(idx, 'dedr_weight', du_pairs.real.dtype,
+                     du_pairs.device)
     s = (du_pairs.real * y.real[:, None, :]
          + du_pairs.imag * y.imag[:, None, :]) * w
     return 2.0 * torch.sum(s, dim=-1)

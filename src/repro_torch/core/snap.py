@@ -29,9 +29,7 @@ All pipelines consume padded per-atom neighbor lists:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -40,6 +38,7 @@ from ..kernels.assemble import assemble_forces_csr, destination_csr
 from .geometry import (compute_geometry, compute_geometry_grad,
                        sanitize_displacements)
 from .indices import SnapIndex, build_index
+from .tables import device_table
 from .ulist import compute_dulist, compute_ulist, compute_ulisttot
 
 
@@ -165,21 +164,12 @@ def assemble_forces(dedr, nbr_idx, mask, natoms, group=None):
 # adjoint pipeline (paper Sec. IV / Listing 5)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=32)
-def _bzero_vector(cfg: SnapConfig, dtype, device):
-    """bzero per bispectrum component on ``device`` (read-only, cached so
-    an evaluation uploads no table)."""
-    idx = cfg.index
-    bz = np.array([idx.bzero[t[2]] for t in idx.idxb_triples])
-    return torch.as_tensor(bz, dtype=dtype, device=device)
-
-
 def bzero_shift(cfg: SnapConfig, beta, dtype):
     """Per-atom energy shift from the bzero self-contribution: bzero . beta
     (beta [ncoeff]), or one a row of beta [L, ncoeff]: [L]."""
     if not cfg.bzero_flag:
         return 0.0
-    bz = _bzero_vector(cfg, dtype, beta.device)
+    bz = device_table(cfg.index, bs.bzero_table, dtype, beta.device)
     return bz @ beta.to(dtype) if beta.ndim == 1 else beta.to(dtype) @ bz
 
 
@@ -189,8 +179,8 @@ def energy_from_ylist(cfg: SnapConfig, ulisttot, ylist, beta, beta0):
         sum_l beta_l B_l  ==  (2/3) sum_jju w_jju Re(conj(U) Y)
     """
     idx = cfg.index
-    w = torch.as_tensor(idx.dedr_weight, dtype=ulisttot.real.dtype,
-                        device=ulisttot.device)
+    w = device_table(idx, 'dedr_weight', ulisttot.real.dtype,
+                     ulisttot.device)
     e_raw = (2.0 / 3.0) * torch.sum(
         w * (ulisttot.real * ylist.real + ulisttot.imag * ylist.imag),
         dim=-1)

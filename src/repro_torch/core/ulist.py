@@ -13,6 +13,7 @@ import torch
 
 from .geometry import PairGeom, PairGeomGrad
 from .indices import SnapIndex
+from .tables import device_table
 
 
 def complex_dtype(dtype):
@@ -20,14 +21,10 @@ def complex_dtype(dtype):
 
 
 def _level_tables(lv, dtype, device):
-    t = dict(device=device)
-    return (torch.as_tensor(lv.a_src, dtype=torch.long, **t),
-            torch.as_tensor(lv.b_src, dtype=torch.long, **t),
-            torch.as_tensor(lv.a_coef, dtype=dtype, **t),
-            torch.as_tensor(lv.b_coef, dtype=dtype, **t),
-            torch.as_tensor(lv.full_src, dtype=torch.long, **t),
-            torch.as_tensor(lv.full_conj, **t),
-            torch.as_tensor(lv.full_sign, dtype=dtype, **t))
+    return tuple(device_table(lv, name, dt, device) for name, dt in (
+        ('a_src', torch.long), ('b_src', torch.long), ('a_coef', dtype),
+        ('b_coef', dtype), ('full_src', torch.long), ('full_conj', torch.bool),
+        ('full_sign', dtype)))
 
 
 def _mirror_fill(left, full_src, full_conj, sgn):
@@ -113,7 +110,6 @@ def compute_ulisttot(u_pairs, sfac, nbr_mask, idx: SnapIndex, wself=1.0):
     w = (sfac * nbr_mask).to(u_pairs.real.dtype)
     tot = torch.sum(u_pairs * w[..., None], dim=1)
     self_vec = torch.zeros(idx.idxu_max, dtype=u_pairs.dtype,
-                           device=u_pairs.device)
-    self_vec[torch.as_tensor(idx.self_diag, dtype=torch.long,
-                             device=u_pairs.device)] = wself
+                           device=u_pairs.device).index_fill_(
+        0, device_table(idx, 'self_diag', torch.long, u_pairs.device), wself)
     return tot + self_vec

@@ -8,8 +8,9 @@ sources and flags, so an edited source is rebuilt and a stale library is
 never loaded.  A failed build raises with the compiler's output.
 
 Every exported function returns the ``cudaError_t`` of its launch; the
-wrappers call :func:`launch`, which raises when it is not 0, and then add
-one to their entry of :data:`LAUNCHES`.  ``-Xptxas -v``'s report is kept
+wrappers call :func:`launch`, which raises when it is not 0, and then
+report it with ``analysis.launches.record``, which adds one to the kernel's
+entry of :data:`LAUNCHES`.  ``-Xptxas -v``'s report is kept
 beside each library (``.log``); :func:`ptxas_report` reads each kernel's
 registers, stack frame and spills from it.
 """
@@ -135,7 +136,7 @@ def _function(source: str, symbol: str, argtypes: tuple):
 
 
 P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# kernel launches per wrapper entry (the wrappers count; CPU runs do not)
+# kernel launches per wrapper entry (launches.record counts; CPU runs do not)
 LAUNCHES = collections.Counter()
 
 

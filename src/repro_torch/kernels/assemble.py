@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..analysis import launches
 
 _ARGS = (_build.P,) * 4 + (_build.I,) * 4
 
@@ -76,8 +77,11 @@ def assemble_forces_csr(d, order, rowptr, offset=0):
                 t.device != d.device or not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous int64 [{n}] on '
                              f'{d.device}')
+    meta = dict(lanes=n_local)
     if d.device.type == 'cpu':
-        return assemble_forces_csr_plain(d, order, rowptr, offset)
+        return launches.plain('assemble_forces', (d, order, rowptr), meta,
+                              assemble_forces_csr_plain, d, order, rowptr,
+                              offset)
     if d.device.type != 'cuda':
         raise RuntimeError(f'assemble_forces: no kernel for device '
                            f'{d.device}')
@@ -85,5 +89,5 @@ def assemble_forces_csr(d, order, rowptr, offset=0):
     sym = 'assemble_forces_' + ('f32' if d.dtype == torch.float32 else 'f64')
     _build.launch('assemble_forces', sym, _ARGS, d, order, rowptr, f, n_out,
                   n_local, offset, nnbor)
-    _build.LAUNCHES['assemble_forces'] += 1
+    launches.record('assemble_forces', (d, order, rowptr), f, **meta)
     return f

@@ -34,6 +34,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
+from ..analysis import launches
 from ..md.neighbor import dedup_stencil
 
 FLAG_NBR_MAX, FLAG_CELL_MAX = 0, 1    # md/cell_list.py's flag slots
@@ -206,15 +207,17 @@ def cell_bin(pos, box, grid, trigger, flags):
     is nonzero (else unwritten); raises ``flags[FLAG_CELL_MAX]`` in place
     to the largest cell count."""
     _check(pos, box, grid, trigger, flags)
+    meta = dict(lanes=pos.shape[0])
     if pos.device.type == 'cpu':
-        return cell_bin_plain(pos, box, grid, trigger, flags)
+        return launches.plain('cell_bin', (pos, box, trigger, flags), meta,
+                              cell_bin_plain, pos, box, grid, trigger, flags)
     _kernel_device(pos, 'cell_bin')
     table = torch.empty((grid.ncells, grid.cell_cap), dtype=torch.int32,
                         device=pos.device)
     _build.launch('cell_list', f'cell_bin_{_sfx(pos.dtype)}', _BIN_ARGS,
                   pos, box, trigger, table, flags, pos.shape[0],
                   *grid.nbins, grid.cell_cap)
-    _build.LAUNCHES['cell_bin'] += 1
+    launches.record('cell_bin', (pos, box, trigger, flags), table, **meta)
     return table
 
 
@@ -238,12 +241,17 @@ def cell_build(pos, box, grid, table, trigger, nbr_idx, mask, shifts, flags,
                 t.device != pos.device or not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous {dtype} '
                              f'{list(shape)} on {pos.device}')
+    # the table slots the build walks: a stencil of cells an atom
+    meta = dict(lanes=N, slots=N * len(grid.stencil) * grid.cell_cap)
     if pos.device.type == 'cpu':
-        return cell_build_plain(pos, box, grid, table, trigger, nbr_idx,
-                                mask, shifts, flags, pos_ref)
+        launches.plain('cell_build', (pos, box, table, trigger), meta,
+                       cell_build_plain, pos, box, grid, table, trigger,
+                       nbr_idx, mask, shifts, flags, pos_ref)
+        return
     _kernel_device(pos, 'cell_build')
     _build.launch('cell_list', f'cell_build_{_sfx(pos.dtype)}', _BUILD_ARGS,
                   pos, box, trigger, table, nbr_idx, mask, shifts, pos_ref,
                   flags, N, *grid.nbins, grid.cell_cap, K,
                   grid.rcut_build * grid.rcut_build)
-    _build.LAUNCHES['cell_build'] += 1
+    # the lists are written in place: no output of its own
+    launches.record('cell_build', (pos, box, table, trigger), None, **meta)

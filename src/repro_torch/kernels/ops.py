@@ -35,6 +35,7 @@ from ..core.geometry import sanitize_displacements
 from ..core.snap import (SnapConfig, assemble_forces, bzero_shift,
                          energy_forces, energy_forces_adjoint,
                          resolve_device)
+from ..core.tables import device_table
 from ..runtime.shard import group_of, rank_rows
 from .common import LANES
 from .snap_fused_de import snap_fused_de_full, snap_fused_de_full_plain
@@ -126,13 +127,11 @@ def half_planes_to_full(cfg: SnapConfig, h_r, h_i):
     return sgn * h_r[src], sgn * sig * h_i[src]
 
 
-@lru_cache(maxsize=32)
 def _energy_weights(cfg: SnapConfig, dtype, device, layout):
     """``dedr_weight_half`` or ``dedr_weight`` as a read-only [rows, 1]
     plane."""
-    idx = cfg.index
-    w = idx.dedr_weight_half if layout == 'half' else idx.dedr_weight
-    return torch.as_tensor(w, dtype=dtype, device=device)[:, None]
+    name = 'dedr_weight_half' if layout == 'half' else 'dedr_weight'
+    return device_table(cfg.index, name, dtype, device)[:, None]
 
 
 def energy_from_ylist_lanes(cfg: SnapConfig, ut_r, ut_i, y_r, y_i,

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..analysis import launches
 from .common import (conj_mul, geom_ck_grad, half_prev_rows, level_coefs,
                      level_stitch, rootpq)
 from .launch_plan import de_plan
@@ -124,8 +125,10 @@ def fused_de(name, plain, nrows, disp, y_r, y_i, geo):
     on a CPU tensor or kernel ``name`` on a CUDA tensor."""
     check_disp(disp, geo['twojmax'])
     check_y(disp, y_r, y_i, nrows)
+    meta = dict(twojmax=geo['twojmax'])
     if disp.device.type == 'cpu':
-        return plain(disp, y_r, y_i, **geo)
+        return launches.plain(name, (disp, y_r, y_i), meta, plain, disp,
+                              y_r, y_i, **geo)
     if disp.device.type != 'cuda':
         raise RuntimeError(f'{name}: no kernel for device {disp.device}')
     nnbor, _, n = disp.shape
@@ -137,7 +140,7 @@ def fused_de(name, plain, nrows, disp, y_r, y_i, geo):
                   float(geo['rcut']), float(geo['rmin0']),
                   float(geo['rfac0']), int(geo['switch_flag']), plan.lanes,
                   plan.threads, plan.smem)
-    _build.LAUNCHES[name] += 1
+    launches.record(name, (disp, y_r, y_i), out, **meta)
     return out
 
 

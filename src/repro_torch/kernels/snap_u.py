@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..analysis import launches
 from .common import (MAX_TWOJMAX, geom_ck, rootpq, u_half_level_step,
                      u_level_step)
 from .launch_plan import u_plan
@@ -91,8 +92,9 @@ def snap_u_full_plain(disp, *, twojmax, rcut, rmin0=0.0, rfac0=0.99363,
 def _u(name, plain, nrows, disp, geo):
     """The wrapper of both U stages."""
     check_disp(disp, geo['twojmax'])
+    meta = dict(twojmax=geo['twojmax'])
     if disp.device.type == 'cpu':
-        return plain(disp, **geo)
+        return launches.plain(name, (disp,), meta, plain, disp, **geo)
     if disp.device.type != 'cuda':
         raise RuntimeError(f'{name}: no kernel for device {disp.device}')
     nnbor, _, n = disp.shape
@@ -109,7 +111,7 @@ def _u(name, plain, nrows, disp, geo):
                   float(geo['rcut']), float(geo['rmin0']),
                   float(geo['rfac0']), int(geo['switch_flag']), plan.lanes,
                   plan.threads, plan.groups, plan.smem, part)
-    _build.LAUNCHES[name] += 1
+    launches.record(name, (disp,), (out_r, out_i), **meta)
     return out_r, out_i
 
 

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..analysis import launches
 from .launch_plan import y_atoms, y_plan, y_segments
 from ..core.indices import build_index
 
@@ -297,13 +298,16 @@ def _y(name, layout, ut_r, ut_i, coef, twojmax, mxu_dtype=None,
        lane_atoms=None):
     _check(ut_r, ut_i, coef, twojmax, layout, lane_atoms)
     check_mxu_dtype(mxu_dtype)
-    if ut_r.device.type == 'cpu':
-        return _y_plain(ut_r, ut_i, coef, twojmax, layout,
-                        bf16=mxu_dtype is not None, lane_atoms=lane_atoms)
-    if ut_r.device.type != 'cuda':
-        raise RuntimeError(f'{name}: no kernel for device {ut_r.device}')
     if mxu_dtype is not None:
         name += '_bf16'
+    meta = dict(twojmax=twojmax, mxu_dtype=mxu_dtype)
+    if ut_r.device.type == 'cpu':
+        return launches.plain(name, (ut_r, ut_i, coef), meta, _y_plain,
+                              ut_r, ut_i, coef, twojmax, layout,
+                              bf16=mxu_dtype is not None,
+                              lane_atoms=lane_atoms)
+    if ut_r.device.type != 'cuda':
+        raise RuntimeError(f'{name}: no kernel for device {ut_r.device}')
     rows, n = ut_r.shape
     plan = y_plan(twojmax, ut_r.dtype, layout, n)
     tables = y_launch_tables(twojmax, layout, ut_r.device, plan.groups,
@@ -314,7 +318,7 @@ def _y(name, layout, ut_r, ut_i, coef, twojmax, mxu_dtype=None,
                   coef, tables[2], y_r, y_i, rows, n, plan.lanes,
                   plan.threads, plan.groups, plan.smem, lane_atoms or 0,
                   coef.shape[-1] if lane_atoms else 0)
-    _build.LAUNCHES[name] += 1
+    launches.record(name, (ut_r, ut_i, coef), (y_r, y_i), **meta)
     return y_r, y_i
 
 

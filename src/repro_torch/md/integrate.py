@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..analysis import launches
 from ..analysis.retrace import record_trace
 from ..core.snap import SnapConfig, energy_forces, resolve_device
 from ..runtime.checkpoint import host_array
@@ -285,40 +286,41 @@ def make_device_chunk_fn(cfg: SnapConfig, dt, mass, grid, force_fn,
         rebuilt = torch.zeros((), dtype=torch.int32, device=pos.device)
         rows = []
         for _ in range(n_sub):
-            vel = vel + (0.5 * dt * acc_scale) * f
-            pos = pos + dt * vel
-            dp = pos - pos_ref
-            moved2 = torch.max(torch.sum(dp * dp, dim=-1))
-            # skin=0 degenerates to rebuild-every-step (moved2 >= 0 always)
-            trigger = ((moved2 > half_skin2) if grid.skin > 0
-                       else (moved2 >= 0.0)).to(torch.int32)
-            rebuild_if(trigger, pos, box, grid, nbr_idx, shifts, mask,
-                       pos_ref, flags)
-            rebuilt = rebuilt + trigger
-            disp = pos[nbr_idx] + shifts - pos[:, None, :]
-            r2 = torch.sum(disp * disp, dim=-1)
-            mask_t = mask & (r2 < rc2)              # exact per-step cutoff
-            e, f = force_fn(disp[..., 0], disp[..., 1], disp[..., 2],
-                            nbr_idx, mask_t)
-            f = f.to(pos.dtype)
-            vel = vel + (0.5 * dt * acc_scale) * f
-            ke = (0.5 * mass / ACC_CONV) * torch.sum(vel * vel)
-            if guards:
-                # sticky health lattice: O(N) reductions merged into the
-                # carried running-max vector (read with the thermo rows)
-                health = [torch.zeros((), dtype=torch.int32,
-                                      device=pos.device)] * N_FLAGS
-                health[FLAG_NAN_FORCE] = ~torch.isfinite(f).all()
-                health[FLAG_NAN_STATE] = ~(torch.isfinite(pos).all()
-                                           & torch.isfinite(vel).all())
-                health[FLAG_ESCAPE] = (torch.max(torch.abs(pos / box - 0.5))
-                                       > escape_factor)
-                if drift_tol is not None:
-                    health[FLAG_DRIFT] = torch.abs((e + ke) - e_ref) > \
-                        drift_tol
-                flags = torch.maximum(flags, torch.stack(
-                    [h.to(torch.int32) for h in health]))
-            rows.append(torch.stack([e.to(ke.dtype), ke]))
+            with launches.hot():    # one step: the analysis' hot scope
+                vel = vel + (0.5 * dt * acc_scale) * f
+                pos = pos + dt * vel
+                dp = pos - pos_ref
+                moved2 = torch.max(torch.sum(dp * dp, dim=-1))
+                # skin=0 degenerates to rebuild-every-step (moved2 >= 0 always)
+                trigger = ((moved2 > half_skin2) if grid.skin > 0
+                           else (moved2 >= 0.0)).to(torch.int32)
+                rebuild_if(trigger, pos, box, grid, nbr_idx, shifts, mask,
+                           pos_ref, flags)
+                rebuilt = rebuilt + trigger
+                disp = pos[nbr_idx] + shifts - pos[:, None, :]
+                r2 = torch.sum(disp * disp, dim=-1)
+                mask_t = mask & (r2 < rc2)              # exact per-step cutoff
+                e, f = force_fn(disp[..., 0], disp[..., 1], disp[..., 2],
+                                nbr_idx, mask_t)
+                f = f.to(pos.dtype)
+                vel = vel + (0.5 * dt * acc_scale) * f
+                ke = (0.5 * mass / ACC_CONV) * torch.sum(vel * vel)
+                if guards:
+                    # sticky health lattice: O(N) reductions merged into the
+                    # carried running-max vector (read with the thermo rows)
+                    health = [torch.zeros((), dtype=torch.int32,
+                                          device=pos.device)] * N_FLAGS
+                    health[FLAG_NAN_FORCE] = ~torch.isfinite(f).all()
+                    health[FLAG_NAN_STATE] = ~(torch.isfinite(pos).all()
+                                               & torch.isfinite(vel).all())
+                    health[FLAG_ESCAPE] = (
+                        torch.max(torch.abs(pos / box - 0.5)) > escape_factor)
+                    if drift_tol is not None:
+                        health[FLAG_DRIFT] = torch.abs((e + ke) - e_ref) > \
+                            drift_tol
+                    flags = torch.maximum(flags, torch.stack(
+                        [h.to(torch.int32) for h in health]))
+                rows.append(torch.stack([e.to(ke.dtype), ke]))
         return (pos, vel, f, nbr_idx, shifts, mask, pos_ref, flags,
                 torch.stack(rows), rebuilt)
     return chunk

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package, and an entry point
-asked for the card without one raises instead of running on the CPU."""
+``chip_smoke.py`` imports JAX, the reference package or the reference's
+benchmarks, and an entry point asked for the card without one raises
+instead of running on the CPU."""
 import ast
 import sys
 from pathlib import Path
@@ -20,7 +21,7 @@ FILES = sorted((ROOT / 'src' / 'repro_torch').rglob('*.py')) + \
 
 def _forbidden(name):
     top = name.split('.')[0]
-    return top in ('jax', 'jaxlib', 'repro')
+    return top in ('jax', 'jaxlib', 'repro', 'benchmarks')
 
 
 @pytest.mark.parametrize('path', FILES,
@@ -41,7 +42,10 @@ def test_isolation_scan_covers_the_package():
     assert {'ops.py', 'snap.py', 'integrate.py', 'chip_smoke.py',
             'serve_forces.py', 'request_queue.py', 'journal.py',
             'chaos.py', 'checkpoint.py', 'sharding.py', 'shard.py',
-            'linear.py'} <= names
+            'linear.py', 'registry.py', 'runner.py', 'op_passes.py',
+            'memory_passes.py', 'budgets.py', 'launches.py', 'cost.py',
+            'quickstart.py', 'md_nve.py', 'fit_snap.py',
+            'snap_2j8.py'} <= names
 
 
 @pytest.fixture
@@ -162,12 +166,24 @@ def _isolated_rank(rank):
         device='cpu')
     assert len(thermo) == 2 and np.isfinite(float(e)) and f.shape == (1, 3)
     assert np.isfinite(rows[1]).all()
+    # the analysis registry's sharded entry, inside this group of 2 ranks,
+    # as `python -m repro_torch.analysis --ranks 2` runs it a rank
+    from repro_torch.analysis.budgets import DEFAULT_PATH, load_budgets
+    from repro_torch.analysis.runner import rank_report
+    report = rank_report(rank, 'repro_torch.analysis.registry:'
+                         'default_registry', 'cpu', ['force.torch.sharded'],
+                         load_budgets(DEFAULT_PATH, 'cpu'))
+    (entry,) = report.entries
+    assert report.ok and entry.entry == 'force.torch.sharded' and \
+        entry.metrics['launches'] == 1, report.table()
     return sorted(m for m in sys.modules if _forbidden(m))
 
 
 def test_new_entry_points_import_nothing_of_the_reference():
-    """fit, make_sharded_force_fn and run_nve(shards=2, impl='baseline'),
-    run in two spawned ranks (fresh processes that import only this module
-    and the port), leave no jax or repro module in ``sys.modules``."""
+    """fit, make_sharded_force_fn, run_nve(shards=2, impl='baseline') and
+    the analysis suite's sharded entry (its gloo collectives allowlisted by
+    name), run in two spawned ranks (fresh processes that import only this
+    module and the port), leave no jax or repro module in
+    ``sys.modules``."""
     from repro_torch.launch.sharding import spawn_ranks
     assert spawn_ranks(_isolated_rank, 2) == [[], []]
