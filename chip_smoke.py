@@ -93,7 +93,22 @@ of ``src/repro_torch/analysis/budgets.json``; its sharded entry runs in
 the sharded phase's two ranks.  The examples phase runs
 ``repro_torch.examples.md_nve --natoms 2000 --twojmax 8 --loop device
 --impl kernel``, ``quickstart`` and ``serve_forces --impl kernel`` on the
-card with the launch counters set to 0 before and read after.  At
+card with the launch counters set to 0 before and read after.  The lm
+phase drives the language-model serving path (``repro_torch.models``,
+``repro_torch.launch.serve``; no kernel of its own, ``allow_tf32`` off):
+each of the ten ``reduced()`` archs in float32 on the card against the
+same code on the CPU with the same weights (prefill logits and cache, two
+greedy decode steps) and one decode step twice bitwise; nine archs at
+full width in bfloat16 with float32 master weights (gemma3-1b,
+granite-moe-1b-a400m, seamless-m4t-medium at full depth; falcon-mamba-7b
+at 8 layers, zamba2-7b at 2 groups, gemma2-2b at 4 layers with P = W =
+4096, llama-3.2-vision-90b at one group over 1600 patch tokens,
+deepseek-7b and glm4-9b at 2 layers; arctic-480b does not fit the card
+and runs reduced only): finite logits, a decode step twice bitwise, no
+host sync in the decode steps (CUDA sync debug mode), prefill and decode
+ms and tok/s of ``generate`` and peak memory; gemma3-1b teacher forcing
+at full width in float32 (8 greedy steps against ``forward`` over the
+extended sequence); and one profiled gemma3-1b decode step.  At
 2J = 14 (float32) it holds the half and full kernels against their plain
 versions and times the half-plane pipeline (median of 5 evaluations after
 warm-up).
@@ -120,7 +135,9 @@ by name), no host sync, one launch of each kernel of an entry's path a
 call, every ``cuda`` budget met; examples: md_nve's relative drift
 <= 1e-5, quickstart's float32 kernel energy within 1e-5 of the adjoint's
 and the baseline's within 1e-10, every serve_forces request an outcome,
-the poisoned ones typed errors.
+the poisoned ones typed errors; lm: card vs CPU 1e-4 relative to the
+largest value (the CPU tests' bar), decode steps bitwise on repeat,
+teacher forcing |d| <= 2e-3 + 2e-3 |ref| (the reference's bar).
 Times are medians of CUDA-event timings after
 warm-up (``ms``: one call between two events, wrapper host time
 included) and, for each kernel and library call, device time alone
@@ -244,6 +261,29 @@ SHARD_PATHS = {
 BASELINE_CASES, BASELINE_REPS = ((8, (torch.float64, torch.float32)),
                                  (14, (torch.float32,))), 5
 BASELINE_MD_STEPS = 4
+# every arch reduced, card vs CPU (float32): the CPU tests' bar on prefill
+# logits and cache and on two greedy decode steps' logits
+LM_TOL, LM_B, LM_P, LM_STEPS = 1e-4, 2, 16, 2
+# full width (bf16 compute, f32 master weights): arch -> (depth overrides,
+# B, P, G).  P + G >= W and W | P for the local layers (gemma3 W=512,
+# gemma2 W=4096); llama's 5 layers are one group (4 self + 1 cross) over
+# 1600 patch tokens; arctic-480b does not fit (one layer's experts alone
+# are 53.5 GB in f32 and 26.8 GB more in bf16) and runs reduced only
+LM_FULL = {
+    'gemma3-1b': ({}, 4, 512, 16),
+    'granite-moe-1b-a400m': ({}, 4, 512, 16),
+    'falcon-mamba-7b': (dict(n_layers=8), 4, 512, 16),
+    'zamba2-7b': (dict(n_layers=6), 4, 512, 16),
+    'seamless-m4t-medium': ({}, 4, 512, 16),
+    'gemma2-2b': (dict(n_layers=4), 1, 4096, 8),
+    'llama-3.2-vision-90b': (dict(n_layers=5), 1, 512, 16),
+    'deepseek-7b': (dict(n_layers=2), 4, 512, 16),
+    'glm4-9b': (dict(n_layers=2), 4, 512, 16),
+}
+# teacher forcing at full width in float32 (the reference's own check,
+# tests/test_arch_smoke.py): gemma3-1b, full depth, B, P, decode steps, bar
+LM_TF = (2, 512, 8, 2e-3)
+HBM_TBS = 3.35               # TB/s, H100 SXM data sheet
 SMS = 132                    # H100 SXM
 STACK_MAX = 1024             # bytes of stack frame a fused dE kernel may use
 DEVICE_REPS = 20             # K of device_ms
@@ -2303,6 +2343,242 @@ def examples_phase(dev):
                         quickstart=e, serve=sv['health'])
 
 
+# ---------------------------------------------------------------------------
+# the language-model serving path (repro_torch.models, launch/serve.py)
+# ---------------------------------------------------------------------------
+
+def lm_bytes(tree):
+    from repro_torch.models.transformer import tree_leaves
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(tree))
+
+
+def lm_clone(tree):
+    from repro_torch.models.transformer import tree_map
+    return tree_map(torch.clone, tree)
+
+
+def lm_equal(a, b):
+    from repro_torch.models.transformer import tree_leaves
+    return all(torch.equal(x, y) for (_, x), (_, y)
+               in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def lm_reduced(dev):
+    """Each of the ten reduced archs (float32) on the card against the
+    same port code on the CPU with the same weights (drawn on the CPU from
+    one seed and moved): prefill logits and cache, two greedy decode steps
+    (the CPU's tokens fed to both), and one decode step twice from one
+    cache, bitwise on the card."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch.serve import random_inputs, widen_cache
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill, tree_leaves,
+                                                tree_map)
+    worst = {}
+    for arch in ARCHS:
+        cfg = get_config(arch).reduced()
+        g = torch.Generator().manual_seed(ARCHS.index(arch))
+        params = init_params(cfg, g, 'cpu')
+        prompts, front = random_inputs(cfg, LM_B, LM_P, g, 'cpu')
+        runs = {}
+        for d in ('cpu', dev):
+            p = tree_map(lambda t: t.to(d), params)
+            f = None if front is None else front.to(d)
+            last, pcache = prefill(cfg, p, prompts.to(d), frontend_embeds=f)
+            out = [last] + [a for _, a in tree_leaves(pcache)]
+            cache = widen_cache(cfg, pcache, LM_B, LM_P + LM_STEPS)
+            tok = (torch.argmax(last, -1) if d == 'cpu'
+                   else runs['cpu']['tokens'][0].to(d))
+            tokens, steps = [tok], []
+            for i in range(LM_STEPS):
+                if d != 'cpu' and i == 0:
+                    twice = [decode_step(cfg, p, lm_clone(cache), tok,
+                                         LM_P)[0] for _ in range(2)]
+                logits, cache = decode_step(cfg, p, cache, tok, LM_P + i)
+                steps.append(logits)
+                tok = (torch.argmax(logits, -1) if d == 'cpu'
+                       else runs['cpu']['tokens'][i + 1].to(d))
+                tokens.append(tok)
+            runs[d] = dict(out=out, steps=steps, tokens=tokens)
+        errs = [float((a.cpu() - b).abs().max())
+                / max(float(b.abs().max()), 1e-30) for a, b in
+                zip(runs[dev]['out'] + runs[dev]['steps'],
+                    runs['cpu']['out'] + runs['cpu']['steps'])]
+        worst[arch] = max(errs)
+        check(worst[arch] <= LM_TOL and torch.equal(*twice),
+              f'lm reduced {arch}: card vs CPU, prefill logits and '
+              f'{len(runs["cpu"]["out"]) - 1} cache leaves and '
+              f'{LM_STEPS} decode steps, max rel err {worst[arch]:.3e} '
+              f'(bar {LM_TOL:.0e}); a decode step twice bitwise '
+              f'{torch.equal(*twice)}')
+    return worst
+
+
+def lm_full(dev, arch, over, B, P, G):
+    """One arch at full width (bf16 compute, f32 master weights drawn on
+    the card): finite logits at every step, one decode step twice from one
+    cache bitwise, no host sync in the decode steps (CUDA sync debug mode,
+    the greedy token kept on the card), then ``launch.serve.generate``
+    timed (the second of two calls) and the peak memory."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, random_inputs, widen_cache
+    from repro_torch.models.transformer import (cast_for_compute,
+                                                decode_step, init_params,
+                                                param_count, prefill)
+    cfg = dataclasses.replace(get_config(arch), **over)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, g, dev)
+    prompts, front = random_inputs(cfg, B, P, g, dev)
+    n_params = param_count(params)
+    cp = cast_for_compute(params, cfg.adtype)
+    weight_gb = lm_bytes(cp) / 1e9
+    last, pcache = prefill(cfg, cp, prompts, frontend_embeds=front)
+    cache = widen_cache(cfg, pcache, B, P + G)
+    del pcache
+    finite = torch.isfinite(last).all()
+    tok = torch.argmax(last, -1)
+    twice = [decode_step(cfg, cp, lm_clone(cache), tok, P) for _ in range(2)]
+    bitwise = (torch.equal(twice[0][0], twice[1][0])
+               and lm_equal(twice[0][1], twice[1][1]))
+    del twice
+    torch.cuda.synchronize()
+    sync_error = None
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for i in range(G - 1):
+            logits, cache = decode_step(cfg, cp, cache, tok, P + i)
+            finite = finite & torch.isfinite(logits).all()
+            tok = torch.argmax(logits, -1)
+    except RuntimeError as e:
+        sync_error = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    del cache, cp
+    runs = [generate(cfg, params, prompts, G, frontend=front, device=dev)
+            for _ in range(2)]
+    out = runs[-1]
+    torch.cuda.synchronize()
+    peak = peak_gb()
+    depth = (f'{cfg.n_layers} layers' + (f' + {cfg.enc_layers} encoder'
+                                         if cfg.enc_layers else ''))
+    row = dict(arch=arch, layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+               params=n_params, B=B, P=P, G=G,
+               prefill_ms=out['prefill_s'] * 1e3,
+               prefill_tok_s=B * P / out['prefill_s'],
+               decode_ms_step=out['decode_s'] * 1e3 / (G - 1),
+               decode_tok_s=B * (G - 1) / out['decode_s'],
+               peak_gb=peak, weight_gb=weight_gb,
+               weight_read_ms=weight_gb / HBM_TBS)
+    check(bool(finite) and bitwise and sync_error is None
+          and bool(torch.isfinite(out['logits']).all()),
+          f'lm full {arch} ({depth}, {n_params / 1e9:.2f} B params, B={B} '
+          f'P={P} G={G}, bf16): logits finite {bool(finite)}, a decode '
+          f'step twice bitwise {bitwise}, host syncs in {G - 1} decode '
+          f'steps: {"none" if sync_error is None else sync_error}')
+    print(f'     lm {arch}: prefill {row["prefill_ms"]:.2f} ms '
+          f'({row["prefill_tok_s"]:.0f} tok/s), decode '
+          f'{row["decode_ms_step"]:.3f} ms a step ({row["decode_tok_s"]:.1f}'
+          f' tok/s), peak {peak:.3f} GB; its {weight_gb:.3f} GB of '
+          f'compute weights read once take {weight_gb / HBM_TBS:.3f} ms',
+          flush=True)
+    del params, runs, out
+    return row
+
+
+def lm_teacher_forcing(dev):
+    """gemma3-1b at full width and depth in float32: a P-token prefill and
+    8 greedy decode steps against ``forward`` over the extended sequence
+    (positions P-1 .. P+7), |a - b| <= bar + bar * |b|."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import widen_cache
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_params, prefill)
+    B, P, G, bar = LM_TF
+    cfg = dataclasses.replace(get_config('gemma3-1b'), dtype='float32')
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(1)
+    params = init_params(cfg, g, dev)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=g, device=dev)
+    last, pcache = prefill(cfg, params, prompts)
+    cache = widen_cache(cfg, pcache, B, P + G)
+    del pcache
+    steps, toks = [last[:, 0]], [torch.argmax(last, -1)]
+    for i in range(G):
+        logits, cache = decode_step(cfg, params, cache, toks[-1], P + i)
+        steps.append(logits[:, 0])
+        toks.append(torch.argmax(logits, -1))
+    del cache
+    seq = torch.cat([prompts] + toks[:G], dim=1)
+    full, _ = forward(cfg, params, seq)
+    got, want = torch.stack(steps, 1), full[:, P - 1:P + G]
+    excess = float(((got - want).abs() - bar * want.abs()).max())
+    check(excess <= bar, f'lm teacher forcing gemma3-1b (full width, '
+          f'{cfg.n_layers} layers, f32, B={B} P={P}): {G} decode steps and '
+          f'the prefill vs forward over {P + G} tokens, max |d| - {bar:.0e}'
+          f'|ref| = {excess:.3e} (bar {bar:.0e}), max |d| '
+          f'{float((got - want).abs().max()):.3e}')
+    return excess
+
+
+def lm_profile(dev, reps=5):
+    """Where the device time of one gemma3-1b decode step goes (full
+    width, bf16, B=4, a 512-token cache): torch.profiler over ``reps``
+    steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import random_inputs, widen_cache
+    from repro_torch.models.transformer import (cast_for_compute,
+                                                decode_step, init_params,
+                                                prefill)
+    _, B, P, G = LM_FULL['gemma3-1b']
+    cfg = get_config('gemma3-1b')
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    cp = cast_for_compute(init_params(cfg, g, dev), cfg.adtype)
+    prompts, _ = random_inputs(cfg, B, P, g, dev)
+    last, pcache = prefill(cfg, cp, prompts)
+    cache = widen_cache(cfg, pcache, B, P + reps + 2)
+    tok = torch.argmax(last, -1)
+    decode_step(cfg, cp, cache, tok, P)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(reps):
+            logits, cache = decode_step(cfg, cp, cache, tok, P + 1 + i)
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per = profile_summary(prof, wall_us, reps, 'lm profile gemma3-1b decode '
+                          f'(B={B}, bf16)', 'step', 10)
+    if per is None:
+        return None
+    bytes_ms = lm_bytes(cp) / 1e9 / HBM_TBS
+    print(f'     lm profile: the step\'s compute weights read once take '
+          f'{bytes_ms:.3f} ms at {HBM_TBS} TB/s', flush=True)
+    return dict(device_ops=sum(n for n, _ in per.values()) / reps,
+                device_ms=sum(us for _, us in per.values()) / reps / 1e3,
+                wall_ms=wall_us / reps / 1e3, weight_read_ms=bytes_ms)
+
+
+def lm_phase(dev):
+    """The language-model serving path on the card: every arch reduced
+    against the CPU, the full-width runs, teacher forcing in float32 and
+    one profiled decode step.  ``allow_tf32`` is off (main sets it)."""
+    numbers = dict(reduced_max_rel_err=lm_reduced(dev))
+    numbers['full'] = [lm_full(dev, arch, *spec)
+                       for arch, spec in LM_FULL.items()]
+    numbers['teacher_forcing_excess'] = lm_teacher_forcing(dev)
+    numbers['profile'] = lm_profile(dev)
+    return numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
@@ -2361,6 +2637,7 @@ def main():
     example_counts, example_numbers = examples_phase(dev)
     print('examples: ' + json.dumps(example_numbers, default=str),
           flush=True)
+    print('lm: ' + json.dumps(lm_phase(dev)), flush=True)
     # each phase of this slice launched every kernel of its path
     check(all(analysis_counts[k] > 0 for k in KERNELS),
           f'analysis: every kernel launched ({analysis_counts})')

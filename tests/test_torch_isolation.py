@@ -45,7 +45,8 @@ def test_isolation_scan_covers_the_package():
             'linear.py', 'registry.py', 'runner.py', 'op_passes.py',
             'memory_passes.py', 'budgets.py', 'launches.py', 'cost.py',
             'quickstart.py', 'md_nve.py', 'fit_snap.py',
-            'snap_2j8.py'} <= names
+            'snap_2j8.py', 'transformer.py', 'attention.py', 'moe.py',
+            'ssm.py', 'layers.py', 'serve.py', 'gemma3_1b.py'} <= names
 
 
 @pytest.fixture
@@ -141,6 +142,27 @@ def test_sharded_baseline_and_fit_without_card_raise(no_card):
         fit_snap_linear(_args()[0], [data])
 
 
+def test_lm_serving_without_card_raises(no_card):
+    """The language-model entry points default to the card too: the
+    serving loop asked for 'cuda' raises instead of running on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tt
+    cfg = get_config('gemma3-1b').reduced(n_layers=6)
+    with pytest.raises(RuntimeError, match='cuda'):
+        tt.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match='cuda'):
+        tt.init_cache(cfg, 1, 4)
+    params = tt.init_params(cfg, torch.Generator(), device='cpu')
+    prompts = torch.zeros((1, 8), dtype=torch.long)   # the window: 8
+    with pytest.raises(RuntimeError, match='cuda'):
+        serve.generate(cfg, params, prompts, 2)
+    with pytest.raises(RuntimeError, match='cuda'):
+        serve.main(['--arch', 'gemma3-1b'])
+    out = serve.generate(cfg, params, prompts, 2, device='cpu')
+    assert out['tokens'].shape == (1, 2)
+
+
 def _isolated_rank(rank):
     """One rank of a fresh process group: the new entry points imported
     and run on the CPU, then the modules this process holds."""
@@ -166,6 +188,14 @@ def _isolated_rank(rank):
         device='cpu')
     assert len(thermo) == 2 and np.isfinite(float(e)) and f.shape == (1, 3)
     assert np.isfinite(rows[1]).all()
+    # the language-model serving loop
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import init_params
+    lm = get_config('falcon-mamba-7b').reduced()
+    out = generate(lm, init_params(lm, torch.Generator(), device='cpu'),
+                   torch.zeros((1, 4), dtype=torch.long), 2, device='cpu')
+    assert torch.isfinite(out['logits']).all()
     # the analysis registry's sharded entry, inside this group of 2 ranks,
     # as `python -m repro_torch.analysis --ranks 2` runs it a rank
     from repro_torch.analysis.budgets import DEFAULT_PATH, load_budgets
@@ -180,9 +210,9 @@ def _isolated_rank(rank):
 
 
 def test_new_entry_points_import_nothing_of_the_reference():
-    """fit, make_sharded_force_fn, run_nve(shards=2, impl='baseline') and
-    the analysis suite's sharded entry (its gloo collectives allowlisted by
-    name), run in two spawned ranks (fresh processes that import only this
+    """fit, make_sharded_force_fn, run_nve(shards=2, impl='baseline'), the
+    analysis suite's sharded entry (its gloo collectives allowlisted by
+    name) and the language-model serving loop, run in two spawned ranks (fresh processes that import only this
     module and the port), leave no jax or repro module in
     ``sys.modules``."""
     from repro_torch.launch.sharding import spawn_ranks
