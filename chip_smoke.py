@@ -108,7 +108,22 @@ and runs reduced only): finite logits, a decode step twice bitwise, no
 host sync in the decode steps (CUDA sync debug mode), prefill and decode
 ms and tok/s of ``generate`` and peak memory; gemma3-1b teacher forcing
 at full width in float32 (8 greedy steps against ``forward`` over the
-extended sequence); and one profiled gemma3-1b decode step.  At
+extended sequence); and one profiled gemma3-1b decode step.  The train
+phase drives the language-model training path (``train_loss`` with
+remat, ``launch.steps.make_train_step``, ``optim``, ``launch.train``; no
+kernel of its own): each reduced arch's loss and every gradient leaf in
+float32 on the card against the CPU, a step twice from one state bitwise
+(on a miss it names the ops without a deterministic path) and a step
+under CUDA sync debug mode; ``launch.train.main`` on the card for
+gemma3-1b, granite-moe-1b-a400m and arctic-480b (int8 moments, bf16
+parameters) reduced, 4 steps with checkpoints, the same command resumed
+to 6, and 6 straight, bitwise; ``make_dp_compressed_grad`` on 2 gloo
+ranks of the card; gemma3-1b at full width and depth (B=4, S=4096, bf16
+compute, f32 master weights and moments) with and without
+``REPRO_FLASH_VJP=1``, and granite-moe-1b-a400m at full width and depth
+with its 4 microbatches: 3 steps each, the last two timed and under CUDA
+sync debug mode, tok/s and peak memory; one more step of gemma3-1b
+(without the flash backward) and of granite-moe profiled.  At
 2J = 14 (float32) it holds the half and full kernels against their plain
 versions and times the half-plane pipeline (median of 5 evaluations after
 warm-up).
@@ -137,7 +152,11 @@ call, every ``cuda`` budget met; examples: md_nve's relative drift
 and the baseline's within 1e-10, every serve_forces request an outcome,
 the poisoned ones typed errors; lm: card vs CPU 1e-4 relative to the
 largest value (the CPU tests' bar), decode steps bitwise on repeat,
-teacher forcing |d| <= 2e-3 + 2e-3 |ref| (the reference's bar).
+teacher forcing |d| <= 2e-3 + 2e-3 |ref| (the reference's bar); train:
+card vs CPU 1e-4 relative to each leaf's largest value, steps and
+restarts bitwise, the compressed gradient < 2e-2 relative (the
+reference test's bar), the flash backward's first loss within 1e-3 of
+plain autograd's.
 Times are medians of CUDA-event timings after
 warm-up (``ms``: one call between two events, wrapper host time
 included) and, for each kernel and library call, device time alone
@@ -283,6 +302,18 @@ LM_FULL = {
 # teacher forcing at full width in float32 (the reference's own check,
 # tests/test_arch_smoke.py): gemma3-1b, full depth, B, P, decode steps, bar
 LM_TF = (2, 512, 8, 2e-3)
+# the train phase: reduced archs at B x S (float32, card vs CPU); the archs
+# whose restarts through launch.train are checked (their policies: f32,
+# f32 with 4 microbatches, int8 moments with bf16 parameters and 4
+# microbatches);
+# full width and depth at train_4k's S = 4096, the batch cut from 256 to
+# 4 for one card; steps a run (the first untimed); the bar on the loss
+# with the flash backward against plain autograd
+TRAIN_B, TRAIN_S = 2, 32
+TRAIN_RESTART = ('gemma3-1b', 'granite-moe-1b-a400m', 'arctic-480b')
+TRAIN_FULL = {'gemma3-1b': (4, 4096), 'granite-moe-1b-a400m': (4, 4096)}
+TRAIN_STEPS = 3
+TRAIN_FLASH_TOL = 1e-3
 HBM_TBS = 3.35               # TB/s, H100 SXM data sheet
 SMS = 132                    # H100 SXM
 STACK_MAX = 1024             # bytes of stack frame a fused dE kernel may use
@@ -2579,6 +2610,319 @@ def lm_phase(dev):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the language-model training path (models' losses and remat, flash_vjp,
+# optim/, launch/steps.py, launch/train.py)
+# ---------------------------------------------------------------------------
+
+def train_grads(cfg, params, batch):
+    """(loss, {path: gradient}) of ``train_loss`` (remat on)."""
+    from repro_torch.models.transformer import train_loss, value_and_grad
+    return value_and_grad(lambda p: train_loss(cfg, p, batch), params)
+
+
+def train_batch(cfg, B, S, g, dev):
+    """tokens, labels and the frontend stream (as the serving CLI draws
+    it), drawn on the generator's device and placed on ``dev``."""
+    from repro_torch.launch.serve import random_inputs
+    tokens, front = random_inputs(cfg, B, S, g, dev)
+    batch = dict(tokens=tokens, labels=torch.randint(
+        0, cfg.vocab, (B, S), generator=g, device=g.device).to(dev))
+    if front is not None:
+        batch['frontend'] = front
+    return batch
+
+
+def nondeterministic_ops(fn):
+    """The ops ``fn`` runs that have no deterministic path on the card
+    (``torch.use_deterministic_algorithms``' warnings)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).splitlines()[0][:160] for w in caught})
+
+
+def step_without_sync(step, params, opt, batch):
+    """One train step under CUDA sync debug mode 'error': (its output,
+    None) or (None, the first line of the sync error)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        return step(params, opt, batch), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def train_reduced(dev):
+    """Each reduced arch in float32: ``train_loss`` and every gradient
+    leaf on the card against the CPU from the same weights and batch
+    (drawn on the CPU); one ``make_train_step`` step twice from one state,
+    bitwise (on a miss, the ops without a deterministic path are named);
+    one step under CUDA sync debug mode."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_params, tree_map
+    from repro_torch.optim.adamw import adamw_init
+    worst = {}
+    for arch in ARCHS:
+        cfg = get_config(arch).reduced()
+        g = torch.Generator().manual_seed(100 + ARCHS.index(arch))
+        params = init_params(cfg, g, 'cpu')
+        batch = train_batch(cfg, TRAIN_B, TRAIN_S, g, 'cpu')
+        out = {}
+        for d in ('cpu', dev):
+            out[d] = train_grads(cfg, tree_map(lambda t: t.to(d), params),
+                                 {k: v.to(d) for k, v in batch.items()})
+        errs = [rel_err(out[dev][0].cpu(), out['cpu'][0])[1]] + [
+            rel_err(gr.cpu(), out['cpu'][1][p])[1]
+            for p, gr in out[dev][1].items()]
+        worst[arch] = max(errs)
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        step = make_train_step(cfg, device=dev)
+
+        def run():
+            pp = lm_clone(p)
+            return step(pp, adamw_init(pp), b)
+        twice = [run() for _ in range(2)]
+        bitwise = all(lm_equal(twice[0][i], twice[1][i]) for i in (0, 1)) \
+            and torch.equal(twice[0][2]['loss'], twice[1][2]['loss'])
+        del twice
+        pp = lm_clone(p)
+        _, sync_error = step_without_sync(step, pp, adamw_init(pp), b)
+        check(worst[arch] <= LM_TOL and bitwise and sync_error is None,
+              f'train reduced {arch}: card vs CPU, train_loss and '
+              f'{len(out["cpu"][1])} gradient leaves, max rel err '
+              f'{worst[arch]:.3e} (bar {LM_TOL:.0e}); a step twice bitwise '
+              f'{bitwise}; host syncs in a step: '
+              f'{"none" if sync_error is None else sync_error}')
+        if not bitwise:
+            print(f'     train reduced {arch}: ops without a deterministic '
+                  f'path: {nondeterministic_ops(run)}', flush=True)
+    return worst
+
+
+def train_restart(dev, tmp):
+    """``python -m repro_torch.launch.train`` on the card (its main, in
+    process), per arch of TRAIN_RESTART under its policy: 4 steps with a
+    checkpoint every 2, the same command to 6 (it restores step 4), and 6
+    straight; the parameters and AdamW state bitwise equal."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    from repro_torch.runtime.checkpoint import _flatten, latest_step
+    ok = {}
+    for arch in TRAIN_RESTART:
+        argv = ['--arch', arch, '--reduced', '--steps', '4', '--batch', '4',
+                '--seq', '32', '--ckpt', f'{tmp}/{arch}', '--ckpt-every',
+                '2', '--log-every', '100', '--device', dev.type]
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            train.main(argv)
+            argv[argv.index('--steps') + 1] = '6'
+            resumed = train.main(argv)
+            straight = train.main(argv[:argv.index('--ckpt')]
+                                  + ['--device', dev.type])
+        a = dict(_flatten({'p': resumed['params'], 'o': resumed['opt']}))
+        b = dict(_flatten({'p': straight['params'], 'o': straight['opt']}))
+        ok[arch] = (sorted(a) == sorted(b)
+                    and all(torch.equal(a[k], b[k]) for k in a)
+                    and resumed['start_step'] == 4
+                    and latest_step(f'{tmp}/{arch}') == 6)
+        policy = log.getvalue().splitlines()[0].split('policy=')[-1]
+        check(ok[arch], f'train restart {arch} (reduced, policy {policy}): '
+              f'4 steps + checkpoint + 2 from the restore vs 6 straight, '
+              f'{len(a)} leaves bitwise {ok[arch]}')
+    return ok
+
+
+def train_full(dev, arch, B, S, flash, profile=False):
+    """One arch at full width and depth under its policy (bf16 compute,
+    its master and moment dtypes, its microbatches), weights drawn on the
+    card: TRAIN_STEPS steps from an emptied allocator, the steps after the
+    first under CUDA sync debug mode and timed (host clock, each ending in
+    a synchronize); ``flash`` sets REPRO_FLASH_VJP=1.  Returns the row."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.steps import (init_train_state, make_train_step,
+                                          train_policy)
+    from repro_torch.models.transformer import param_count
+    cfg = get_config(arch)
+    pol = train_policy(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if flash:
+        os.environ['REPRO_FLASH_VJP'] = '1'
+    try:
+        params, opt = init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0),
+            state_dtype=pol['state_dtype'], param_dtype=pol['param_dtype'],
+            device=dev)
+        n_params = param_count(params)
+        data = SyntheticTokens(vocab=cfg.vocab, seq=S, global_batch=B)
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in data.next_batch().items()}
+                   for _ in range(TRAIN_STEPS + profile)]
+        step = make_train_step(cfg, state_dtype=pol['state_dtype'],
+                               microbatches=pol['microbatches'], device=dev)
+        losses, times, sync_error = [], [], None
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i:
+                out, sync_error = step_without_sync(step, params, opt,
+                                                    batches[i])
+                if sync_error is not None:
+                    break
+            else:
+                out = step(params, opt, batches[i])
+            params, opt, metrics = out
+            out = None
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(metrics['loss'])
+        losses = [float(x) for x in losses]
+        peak = peak_gb()
+        if profile and sync_error is None:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(params, opt, batches[-1])
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            profile_summary(prof, wall_us, 1, f'train profile {arch} '
+                            f'(B={B} S={S}, bf16)', 'step', 10)
+    finally:
+        os.environ.pop('REPRO_FLASH_VJP', None)
+    del params, opt, batches
+    ms = statistics.mean(times[1:]) * 1e3 if len(times) > 1 else None
+    row = dict(arch=arch, layers=cfg.n_layers, params=n_params, B=B, S=S,
+               flash_vjp=flash, policy=pol, losses=losses,
+               step_ms=[t * 1e3 for t in times], ms_step=ms,
+               tok_s=B * S / ms * 1e3 if ms else None, peak_gb=peak)
+    finite = len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+    check(finite and sync_error is None,
+          f'train full {arch} ({cfg.n_layers} layers, {n_params / 1e9:.3f} B '
+          f'params, B={B} S={S}, microbatches {pol["microbatches"]}, '
+          f'REPRO_FLASH_VJP {int(flash)}): {len(losses)} steps, losses '
+          f'{[round(x, 4) for x in losses]} finite {finite}; host syncs in '
+          f'steps 2-{TRAIN_STEPS}: '
+          f'{"none" if sync_error is None else sync_error}')
+    if ms:
+        print(f'     train {arch}{" flash_vjp" if flash else ""}: '
+              f'{ms:.1f} ms a step (steps 2-{TRAIN_STEPS}: '
+              f'{[round(t * 1e3, 1) for t in times[1:]]}), '
+              f'{row["tok_s"]:.0f} tok/s, peak {peak:.3f} GB', flush=True)
+    return row
+
+
+def train_compressed_rank(rank, dev):
+    """One rank of a 2-rank gloo group on one card: the compressed
+    data-parallel gradient of reduced gemma3-1b's ``train_loss`` on this
+    rank's half of the batch, and of the reference test's linear least
+    squares."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import (init_params, train_loss,
+                                                tree_leaves, tree_map)
+    from repro_torch.optim.compression import make_dp_compressed_grad
+    cfg = get_config('gemma3-1b').reduced()
+    g = torch.Generator().manual_seed(7)
+    params = tree_map(lambda t: t.to(dev), init_params(cfg, g, 'cpu'))
+    batch = train_batch(cfg, 2 * TRAIN_B, TRAIN_S, g, dev)
+    half = {k: v[rank * TRAIN_B:(rank + 1) * TRAIN_B]
+            for k, v in batch.items()}
+    loss, grads = make_dp_compressed_grad(
+        lambda p, b: train_loss(cfg, p, b))(params, half)
+    rng = np.random.default_rng(11)
+    w, x, y = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                               device=dev)
+               for s in ((16, 4), (32, 16), (32, 4)))
+    lin_loss, lin = make_dp_compressed_grad(
+        lambda p, b: torch.mean((b[0] @ p['w'] - b[1]) ** 2))(
+        {'w': w}, (x[rank * 16:(rank + 1) * 16], y[rank * 16:(rank + 1) * 16]))
+    return dict(backend=dist.get_backend(), device=str(loss.device),
+                loss=float(loss),
+                grads={p: t.cpu().numpy() for p, t in tree_leaves(grads)},
+                lin=lin['w'].cpu().numpy(), lin_loss=float(lin_loss))
+
+
+def train_compressed(dev):
+    """``make_dp_compressed_grad`` over the 2 gloo ranks of one card
+    against the exact gradient on the card: max |error| / max |exact|
+    below 0.02 (the reference test's bar) in every leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import spawn_ranks
+    from repro_torch.models.transformer import init_params, tree_map
+    cfg = get_config('gemma3-1b').reduced()
+    g = torch.Generator().manual_seed(7)
+    params = tree_map(lambda t: t.to(dev), init_params(cfg, g, 'cpu'))
+    batch = train_batch(cfg, 2 * TRAIN_B, TRAIN_S, g, dev)
+    loss, exact = train_grads(cfg, params, batch)
+    rng = np.random.default_rng(11)
+    w, x, y = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                               device=dev).requires_grad_(s == (16, 4))
+               for s in ((16, 4), (32, 16), (32, 4)))
+    lin_loss = torch.mean((x @ w - y) ** 2)
+    (lin,) = torch.autograd.grad(lin_loss, [w])
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(train_compressed_rank, 2, str(dev))
+    wall = time.perf_counter() - t0
+    worst = max(float(np.abs(r['grads'][p] - e.cpu().numpy()).max()
+                      / float(e.abs().max())) for r in ranks
+                for p, e in exact.items())
+    lin_err = max(float(np.abs(r['lin'] - lin.cpu().numpy()).max()
+                        / float(lin.abs().max())) for r in ranks)
+    d_loss = max(abs(r['loss'] - float(loss)) / float(loss) for r in ranks)
+    ok = worst < 0.02 and lin_err < 0.02 and d_loss <= 1e-5
+    check(ok, f'train compressed: make_dp_compressed_grad on 2 '
+          f'{ranks[0]["backend"]} ranks of one card (tensors on '
+          f'{ranks[0]["device"]}), reduced gemma3-1b {len(exact)} leaves '
+          f'max rel err {worst:.3e}, linear {lin_err:.3e} (bar 2e-2); loss '
+          f'vs the full batch {d_loss:.3e} (bar 1e-5); {wall:.1f} s wall')
+    return dict(backend=ranks[0]['backend'], max_rel_err=worst,
+                linear_rel_err=lin_err, loss_rel_err=d_loss, wall_s=wall)
+
+
+def train_phase(dev):
+    """The language-model training path on the card: every arch reduced
+    against the CPU, restarts through ``launch.train``, gemma3-1b at full
+    width with and without the flash backward, granite-moe at full width,
+    and the compressed reduction on 2 ranks.  ``allow_tf32`` is off (main sets
+    it)."""
+    t0 = time.perf_counter()
+    numbers = dict(reduced_max_rel_err=train_reduced(dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        numbers['restart_bitwise'] = train_restart(dev, tmp)
+    numbers['compressed'] = train_compressed(dev)
+    full = [train_full(dev, 'gemma3-1b', *TRAIN_FULL['gemma3-1b'], False,
+                       profile=True),
+            train_full(dev, 'gemma3-1b', *TRAIN_FULL['gemma3-1b'], True)]
+    d = abs(full[1]['losses'][0] - full[0]['losses'][0]) / abs(
+        full[0]['losses'][0])
+    check(d <= TRAIN_FLASH_TOL, f'train full gemma3-1b: the first step\'s '
+          f'loss with REPRO_FLASH_VJP=1 vs without, rel diff {d:.3e} (bar '
+          f'{TRAIN_FLASH_TOL:.0e}); peak {full[1]["peak_gb"]:.3f} vs '
+          f'{full[0]["peak_gb"]:.3f} GB')
+    full.append(train_full(dev, 'granite-moe-1b-a400m',
+                           *TRAIN_FULL['granite-moe-1b-a400m'], False,
+                           profile=True))
+    numbers.update(full=full, flash_loss_rel_diff=d,
+                   phase_s=time.perf_counter() - t0, card=card_identity())
+    print(f'     train phase: {numbers["phase_s"]:.1f} s wall', flush=True)
+    return numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
@@ -2638,6 +2982,7 @@ def main():
     print('examples: ' + json.dumps(example_numbers, default=str),
           flush=True)
     print('lm: ' + json.dumps(lm_phase(dev)), flush=True)
+    print('train: ' + json.dumps(train_phase(dev), default=str), flush=True)
     # each phase of this slice launched every kernel of its path
     check(all(analysis_counts[k] > 0 for k in KERNELS),
           f'analysis: every kernel launched ({analysis_counts})')

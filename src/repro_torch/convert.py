@@ -4,8 +4,8 @@ A linear SNAP model has no weights beyond ``beta`` (one coefficient per
 bispectrum component) and ``beta0`` (the per-atom energy offset).  The
 port imports nothing of the reference package, so the caller passes the
 reference configuration's fields as a plain dict, for example
-``dataclasses.asdict(cfg)``.  A language model's parameters and prefill
-cache come as the reference's pytrees of numpy arrays.
+``dataclasses.asdict(cfg)``.  A language model's parameters, prefill
+cache and AdamW state come as the reference's pytrees of numpy arrays.
 """
 
 from __future__ import annotations
@@ -46,17 +46,6 @@ def from_reference(cfg_fields: dict, beta, beta0, device='cuda',
 # language models
 # ---------------------------------------------------------------------------
 
-def _unflatten(flat):
-    out = {}
-    for path, v in flat.items():
-        *head, leaf = path.split('.')
-        node = out
-        for k in head:
-            node = node.setdefault(k, {})
-        node[leaf] = v
-    return out
-
-
 def _check_paths(what, got, want):
     missing = sorted(set(want) - set(got))
     unknown = sorted(set(got) - set(want))
@@ -71,7 +60,7 @@ def lm_params_from_reference(cfg, tree, device='cuda', dtype=None):
     side).  Every path and shape is checked against ``cfg``; an unknown
     or missing leaf raises.  Leaves keep their dtype unless ``dtype`` is
     given."""
-    from .models.transformer import param_shapes, tree_leaves
+    from .models.transformer import param_shapes, tree_from_paths, tree_leaves
     flat = dict(tree_leaves(tree))
     want = dict(tree_leaves(param_shapes(cfg)))
     _check_paths(f'{cfg.name} parameters', flat, want)
@@ -83,7 +72,7 @@ def lm_params_from_reference(cfg, tree, device='cuda', dtype=None):
             raise ValueError(f'{cfg.name} parameter {path}: shape {a.shape}, '
                              f'expected {tuple(want[path])}')
         out[path] = torch.tensor(a, device=dev, dtype=dtype)
-    return _unflatten(out)
+    return tree_from_paths(out)
 
 
 def lm_cache_from_reference(cfg, tree, device='cuda'):
@@ -92,7 +81,7 @@ def lm_cache_from_reference(cfg, tree, device='cuda'):
     each leaf of the rank of its decode buffer with the group axis
     ``n_groups`` long where the cache is stacked; an unknown or missing
     leaf raises."""
-    from .models.transformer import init_cache, tree_leaves
+    from .models.transformer import init_cache, tree_from_paths, tree_leaves
     flat = dict(tree_leaves(tree))
     want = dict(tree_leaves(init_cache(cfg, 1, 1, s_cross=1,
                                        device='meta')))
@@ -106,4 +95,45 @@ def lm_cache_from_reference(cfg, tree, device='cuda'):
             raise ValueError(f'{cfg.name} cache {path}: shape {a.shape} does '
                              f'not fit the decode buffer {tuple(ref.shape)}')
         out[path] = torch.tensor(a, device=dev)
-    return _unflatten(out)
+    return tree_from_paths(out)
+
+
+def lm_opt_state_from_reference(cfg, tree, device='cuda'):
+    """The port's AdamW state (``optim.adamw``) from the reference's
+    (``jax.tree.map(np.asarray, state)`` on the caller's side): ``m`` and
+    ``v`` with the paths of ``cfg``'s parameters, each leaf a float32
+    array or a ``QTensor``-like pair ``(q, scale)`` of int8 values
+    [..., n_blocks, 128] and float32 scales [..., n_blocks, 1]; ``count``
+    a scalar.  A leaf of the wrong path or shape raises."""
+    from .models.transformer import param_shapes, tree_from_paths, tree_leaves
+    from .optim.adamw import BLOCK, QTensor
+    want = dict(tree_leaves(param_shapes(cfg)))
+    dev = resolve_device(device)
+    out = {}
+    for key in ('m', 'v'):
+        flat = dict(tree_leaves(tree[key]))
+        _check_paths(f'{cfg.name} optimizer {key}', flat, want)
+        moments = {}
+        for path, a in flat.items():
+            shape = tuple(want[path])
+            if isinstance(a, tuple):
+                q, s = (np.asarray(x) for x in a)
+                nb = -(-shape[-1] // BLOCK)
+                if (q.shape != shape[:-1] + (nb, BLOCK) or q.dtype != np.int8
+                        or s.shape != shape[:-1] + (nb, 1)):
+                    raise ValueError(
+                        f'{cfg.name} optimizer {key}.{path}: int8 blocks '
+                        f'{q.shape} {q.dtype} and scales {s.shape} do not '
+                        f'fit the parameter {shape}')
+                moments[path] = QTensor(torch.tensor(q, device=dev),
+                                        torch.tensor(s, device=dev))
+            else:
+                a = np.asarray(a)
+                if a.shape != shape:
+                    raise ValueError(f'{cfg.name} optimizer {key}.{path}: '
+                                     f'shape {a.shape}, expected {shape}')
+                moments[path] = torch.tensor(a, device=dev)
+        out[key] = tree_from_paths(moments)
+    out['count'] = torch.tensor(np.asarray(tree['count']), device=dev,
+                                dtype=torch.int32)
+    return out

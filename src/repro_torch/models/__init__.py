@@ -1,3 +1,3 @@
-"""The language-model serving substrate: configs, layers, attention, MoE,
-SSM blocks and the transformer stack, in PyTorch (the port of
-``repro.models``' forward and decode paths)."""
+"""The language-model substrate: configs, layers and losses, attention
+(with the flash backward), MoE, SSM blocks and the transformer stack, in
+PyTorch (the port of ``repro.models``)."""

@@ -9,18 +9,21 @@
   ring-buffered) KV cache.
 
 All support GQA (n_kv <= n_heads), RoPE applied by the caller, optional
-logit soft-capping, and float32 softmax accumulation.  Masked scores take
+logit soft-capping, and float32 softmax accumulation.  Autograd runs
+through these torch ops; ``REPRO_FLASH_VJP=1`` selects the flash
+backward of ``flash_vjp`` instead.  Masked scores take
 the finite ``NEG_INF``: with ``-inf`` a block whose every score is masked
 would give NaN in the online softmax.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
+import os
 
 import torch
 
-from .layers import softcap
+from .flash_vjp import flash_mha
+from .layers import rounded, softcap
 
 NEG_INF = -1e30
 
@@ -33,14 +36,6 @@ def _divisor_block(s: int, target: int) -> int:
     return b
 
 
-@lru_cache(maxsize=64)
-def rounded(value: float, dtype) -> float:
-    """``value`` rounded to ``dtype``: the reference multiplies by a Python
-    scalar cast to the activation dtype, while torch would keep it in
-    float32 for a bfloat16 tensor."""
-    return torch.tensor(value, dtype=dtype).item()
-
-
 def flash_attention(q, k, v, *, causal=True, softcap_val=0.0,
                     q_offset=0, block_q=512, block_k=1024, window=0):
     """q: [B, Sq, H, hd]; k, v: [B, Sk, G, hd].  Returns [B, Sq, H, hd].
@@ -48,12 +43,20 @@ def flash_attention(q, k, v, *, causal=True, softcap_val=0.0,
     ``q_offset``: absolute position of q[0] relative to k[0] (for
     cross-chunk prefill; 0 for self-attention from the start).
     ``window``: if > 0, restrict to kpos > qpos - window (sliding window).
+
+    With ``REPRO_FLASH_VJP=1`` in the environment (read at each call, as
+    the reference reads it) and no soft-capping, the block-recomputing
+    ``flash_vjp.flash_mha`` runs instead: the same forward, with a
+    backward that saves no probability blocks.
     """
     B, Sq, H, hd = q.shape
     _, Sk, G, _ = k.shape
     rep = H // G
     block_q = _divisor_block(Sq, block_q)
     block_k = _divisor_block(Sk, block_k)
+    if not softcap_val and os.environ.get('REPRO_FLASH_VJP') == '1':
+        return flash_mha(q, k, v, causal, window, q_offset, block_q,
+                         block_k)
     nq, nk = Sq // block_q, Sk // block_k
     dev = q.device
 

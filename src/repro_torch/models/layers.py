@@ -1,8 +1,9 @@
-"""Primitive layers: RMSNorm, RoPE, embeddings, gated MLP, softcap.
+"""Primitive layers: RMSNorm, RoPE, embeddings, gated MLP, softcap, and
+the language-model losses.
 
-The port of ``repro.models.layers``' forward functions.  Elementwise work
-that the reference does in float32 is done in float32 here too, and cast
-back to the activation dtype at the same points.
+The port of ``repro.models.layers``.  Elementwise work that the reference
+does in float32 is done in float32 here too, and cast back to the
+activation dtype at the same points.
 """
 
 from __future__ import annotations
@@ -12,6 +13,15 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+@lru_cache(maxsize=64)
+def rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype``: the reference multiplies by a Python
+    scalar cast to the activation dtype, while torch would keep it in
+    float32 for a bfloat16 tensor."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -71,3 +81,47 @@ def embed(tokens, table):
 def unembed(x, table, cap: float = 0.0):
     logits = x @ table.to(x.dtype).T
     return softcap(logits, cap)
+
+
+def _nll(logits, labels):
+    """Per-position CE in float32. logits [..., V], labels [...] int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token CE in float32; with ``mask``, the masked mean over
+    max(sum(mask), 1) positions."""
+    nll = _nll(logits, labels)
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def _chunk_nll(h, table, labels, cap):
+    """Summed CE of one sequence chunk: its logits exist only here."""
+    return _nll(unembed(h, table, cap), labels).sum()
+
+
+def chunked_lm_loss(hidden, table, labels, cap: float = 0.0,
+                    n_chunks: int = 8):
+    """Mean CE from final hidden states [B, S, d] without the full
+    [B, S, V] logits: the sequence is cut into ``n_chunks`` chunks, each
+    unembedded on its own and recomputed in the backward
+    (``torch.utils.checkpoint``), so the live set is one chunk's logits
+    (gemma3's 262k vocabulary at S=4096 would otherwise hold ~17 GB of
+    float32 logits a batch of 4).  Where ``n_chunks`` does not divide S,
+    or S < n_chunks, the loss is the unchunked ``cross_entropy``, as in
+    the reference."""
+    B, S, _ = hidden.shape
+    if S % n_chunks or S < n_chunks:
+        return cross_entropy(unembed(hidden, table, cap), labels)
+    C = S // n_chunks
+    # no RNG runs here: preserve_rng_state would only stash it
+    nll = [checkpoint(_chunk_nll, hidden[:, c:c + C], table,
+                      labels[:, c:c + C], cap, use_reentrant=False,
+                      preserve_rng_state=False)
+           for c in range(0, S, C)]
+    return torch.stack(nll).sum() / (B * S)

@@ -74,3 +74,11 @@ def moe_ffn(x, router_w, w_in, w_gate, w_out, *, top_k, capacity_factor):
         0, order, torch.arange(n, device=dev))
     y = contrib[inv].reshape(T, top_k, d).sum(1)
     return y.to(x.dtype).reshape(B, S, d), probs
+
+
+def load_balance_loss(probs, top_e, n_experts):
+    """Switch-style auxiliary loss: E * sum_e f_e * P_e, with f_e the share
+    of tokens whose first choice is expert e and P_e the mean router
+    probability of e.  probs: [T, E]; top_e: [T, k]."""
+    f = torch.nn.functional.one_hot(top_e[:, 0], n_experts).float().mean(0)
+    return n_experts * (f * probs.mean(0)).sum()

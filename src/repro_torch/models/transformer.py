@@ -1,6 +1,6 @@
 """Unified transformer stack covering all ten architectures (the port of
-``repro.models.transformer``' serving half: parameters, prefill and
-KV-cache decode).
+``repro.models.transformer``: parameters, the forward with optional
+rematerialization, the training loss, prefill and KV-cache decode).
 
 - **Groups.** The per-layer heterogeneity (local/global alternation,
   cross-attention cadence, MoE-every-layer, mamba backbones) is a
@@ -18,6 +18,10 @@ KV-cache decode).
   cross-attention -> precomputed encoder/frontend KV.  ``decode_step``
   writes each step into its cache's buffers in place (the reference
   donates the cache to its jitted step), so it consumes its cache.
+- **Remat.** ``forward(..., remat=True)`` (what ``train_loss`` runs)
+  recomputes each stacked group, the hybrid's shared block included, in
+  the backward (``torch.utils.checkpoint``); tail layers and the encoder
+  keep their activations, as in the reference.
 - **Precision.** Master weights are float32; ``cast_for_compute`` casts
   the >= 2-D ones to the compute dtype and leaves already-cast weights as
   they are, so a caller casts once and every later call is free.
@@ -31,12 +35,13 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.snap import resolve_device
-from .attention import (decode_attention, flash_attention, local_attention,
-                        rounded)
+from .attention import decode_attention, flash_attention, local_attention
 from .config import ModelConfig
-from .layers import embed, mlp, rms_norm, rope, unembed
+from .layers import (chunked_lm_loss, embed, mlp, rms_norm, rope, rounded,
+                     unembed)
 from .moe import moe_ffn
 from .ssm import (MambaState, mamba1_forward, mamba2_forward,
                   mamba_param_shapes)
@@ -171,6 +176,31 @@ def tree_leaves(tree, prefix=''):
             out += tree_leaves(tree[k], f'{prefix}{k}.')
         return out
     return [(prefix[:-1], tree)]
+
+
+def tree_from_paths(flat):
+    """The nested dict of ``{dotted path: leaf}`` pairs (the inverse of
+    ``tree_leaves``)."""
+    out: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        *head, last = path.split('.')
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+def value_and_grad(fn, params):
+    """``(fn(params) detached, {path: gradient})``: the gradient of the
+    scalar ``fn`` with respect to every leaf of the nested dict
+    ``params`` (``torch.autograd.grad`` over detached leaves, so the
+    caller's tensors keep ``requires_grad`` as they were)."""
+    req = {p: t.detach().requires_grad_(True)
+           for p, t in tree_leaves(params)}
+    out = fn(tree_from_paths(req))
+    grads = torch.autograd.grad(out, list(req.values()))
+    return out.detach(), dict(zip(req, grads))
 
 
 def param_count(params) -> int:
@@ -372,9 +402,11 @@ def _encoder_forward(cfg, params, enc_embeds):
     return rms_norm(x, enc['final_ln'], cfg.norm_eps)
 
 
-def _hidden(cfg, params, tokens, frontend_embeds, collect_cache):
+def _hidden(cfg, params, tokens, frontend_embeds, collect_cache,
+            remat=False):
     """Final hidden states [B, S, d] and, when ``collect_cache``, the
-    prefill cache."""
+    prefill cache; with ``remat`` each group is recomputed in the
+    backward."""
     params = cast_for_compute(params, cfg.adtype)
     x = _embed_scaled(cfg, params, tokens)
     S = tokens.shape[1]
@@ -386,9 +418,7 @@ def _hidden(cfg, params, tokens, frontend_embeds, collect_cache):
                  (frontend_embeds.to(cfg.adtype)
                   if frontend_embeds is not None else None))
 
-    group_caches = []
-    for gi in range(cfg.n_layers // cfg.period):
-        gp = _group(params['groups'], gi)
+    def group_body(x, gp):
         kvs = {}
         for i, tag in enumerate(cfg.pattern):
             x, aux = apply_block(cfg, gp[f'sub{i}'], tag, x, positions,
@@ -400,6 +430,16 @@ def _hidden(cfg, params, tokens, frontend_embeds, collect_cache):
                                  positions)
             if collect_cache:
                 kvs['shared'] = aux
+        return x, kvs
+
+    group_caches = []
+    for gi in range(cfg.n_layers // cfg.period):
+        gp = _group(params['groups'], gi)
+        if remat:   # no RNG runs in a block: no RNG state to stash
+            x, kvs = checkpoint(group_body, x, gp, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, kvs = group_body(x, gp)
         group_caches.append(kvs)
     caches = _stack(group_caches) if collect_cache else None
     for i in range(cfg.n_layers % cfg.period):
@@ -430,15 +470,20 @@ def _table(cfg, params):
 
 
 def forward(cfg: ModelConfig, params, tokens, *, frontend_embeds=None,
-            collect_cache: bool = False, return_hidden: bool = False):
-    """Prefill forward pass over the whole sequence.
+            remat: bool = False, collect_cache: bool = False,
+            return_hidden: bool = False):
+    """Training/prefill forward pass over the whole sequence.
 
     Returns (logits [B, S, V], caches) — caches is the tree of per-layer
     (k, v) stacks when ``collect_cache``, else None; with
     ``return_hidden`` (hidden [B, S, d], unembedding table) instead.
+    ``remat`` recomputes each stacked group in the backward (the
+    reference's ``jax.checkpoint`` of its scan body); it changes no bit of
+    the result or of its gradients.  Off by default: prefill and serving
+    run no backward.
     """
     x, params, caches = _hidden(cfg, params, tokens, frontend_embeds,
-                                collect_cache)
+                                collect_cache, remat)
     if return_hidden:
         return x, _table(cfg, params)
     return unembed(x, _table(cfg, params), cfg.softcap_final), caches
@@ -449,6 +494,18 @@ def prefill(cfg: ModelConfig, params, tokens, frontend_embeds=None):
     prefill cache).  Only the last position is unembedded."""
     x, params, cache = _hidden(cfg, params, tokens, frontend_embeds, True)
     return unembed(x[:, -1:], _table(cfg, params), cfg.softcap_final), cache
+
+
+def train_loss(cfg: ModelConfig, params, batch, remat: bool = True,
+               loss_chunks: int = 8):
+    """Mean next-token CE of ``batch`` (``tokens``, ``labels``, optional
+    ``frontend``): ``forward``'s hidden states through
+    ``chunked_lm_loss``."""
+    hidden, table = forward(cfg, params, batch['tokens'],
+                            frontend_embeds=batch.get('frontend'),
+                            remat=remat, return_hidden=True)
+    return chunked_lm_loss(hidden, table, batch['labels'],
+                           cap=cfg.softcap_final, n_chunks=loss_chunks)
 
 
 # ---------------------------------------------------------------------------

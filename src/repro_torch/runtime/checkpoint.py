@@ -5,8 +5,9 @@ names, so a checkpoint written by either package is read by the other.
 
 - A checkpoint is a directory: ``manifest.json`` + one ``leaf_{i:05d}.npy``
   per leaf, leaves in the order of jax's ``tree_flatten_with_path``: dict
-  keys sorted, list and tuple items in index order, names joined with '.'
-  (``params.w``, ``forces.0``, ``forces.1``, ..., ``forces.10``).  The
+  keys sorted, a NamedTuple's fields in their order and by name, list and
+  tuple items in index order, names joined with '.' (``params.w``,
+  ``opt.m.w.q``, ``opt.m.w.scale``, ``forces.0``, ..., ``forces.10``).  The
   manifest holds ``step``, ``extra`` and ``leaves`` (name, file, shape,
   dtype of each).
 - Atomicity: writes go to ``<dir>.tmp`` and are renamed into place.  Re-
@@ -20,7 +21,10 @@ names, so a checkpoint written by either package is read by the other.
   that carry the atom axis (the reference places a leaf with a sharding of
   its mesh instead).
 
-Leaves may be numpy arrays or torch tensors (copied to the host).
+Leaves may be numpy arrays or torch tensors (copied to the host).  A
+bfloat16 leaf is stored as its raw 2-byte values (numpy's ``|V2``, named
+``bfloat16`` in the manifest), as the reference writes it, and restored as
+bfloat16 (the reference's own ``restore`` cannot cast that file back).
 """
 
 from __future__ import annotations
@@ -37,11 +41,18 @@ import numpy as np
 import torch
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, '_fields')
+
+
 def _children(tree):
-    """[(key, subtree)] of a dict (sorted keys) or a list or tuple (index
-    order), else None for a leaf."""
+    """[(key, subtree)] of a dict (sorted keys), a NamedTuple (its field
+    names, in field order) or a list or tuple (index order), else None for
+    a leaf."""
     if isinstance(tree, dict):
         return [(k, tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f, getattr(tree, f)) for f in tree._fields]
     if isinstance(tree, (list, tuple)):
         return list(enumerate(tree))
     return None
@@ -66,13 +77,32 @@ def _unflatten(tree, leaves):
         return next(leaves)
     if isinstance(tree, dict):
         return {k: _unflatten(sub, leaves) for k, sub in kids}
-    return type(tree)(_unflatten(sub, leaves) for _, sub in kids)
+    fields = [_unflatten(sub, leaves) for _, sub in kids]
+    return type(tree)(*fields) if _is_namedtuple(tree) else type(tree)(fields)
+
+
+# numpy has no bfloat16: such a leaf is stored as its raw 2-byte values
+# (numpy's '|V2'), named 'bfloat16' in the manifest, as the reference's
+# files hold it
+_BF16_FILE = np.dtype('V2')
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_FILE)
+    return t.numpy()
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype == _BF16_FILE:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def host_array(x) -> np.ndarray:
     """A tensor (copied from its device) or array-like as a numpy array."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return _numpy(x.detach().cpu())
     return np.asarray(x)
 
 
@@ -80,7 +110,7 @@ def _host_copy(x) -> np.ndarray:
     """A host copy of a leaf that shares no memory with it (``.cpu()`` of
     a CPU tensor and ``np.asarray`` of an array alias their input)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to('cpu', copy=True).numpy()
+        return _numpy(x.detach().to('cpu', copy=True))
     return np.array(x, copy=True)
 
 
@@ -98,7 +128,8 @@ def save(ckpt_dir, tree, step: int, extra: Optional[Dict] = None):
         np.save(tmp / fname, arr)
         manifest['leaves'].append(
             dict(name=name, file=fname, shape=list(arr.shape),
-                 dtype=str(arr.dtype)))
+                 dtype='bfloat16' if arr.dtype == _BF16_FILE
+                 else str(arr.dtype)))
     (tmp / 'manifest.json').write_text(json.dumps(manifest))
     old = ckpt_dir.parent / (ckpt_dir.name + '.old')
     if old.exists():                      # stale leftover from a crash
@@ -224,7 +255,7 @@ def restore(ckpt_dir, target_tree, devices=None, slices=None):
                                            cuts):
         arr = _read_leaf(ckpt_dir / meta['file'], name, cut, tgt.shape,
                          'target')
-        out.append(torch.from_numpy(arr).to(
+        out.append(_tensor(arr).to(
             device=torch.device(dev or 'cpu'),
             dtype=_torch_dtype(tgt.dtype)))
     return _unflatten(target_tree, iter(out))

@@ -33,7 +33,7 @@ def group_of(group=None):
     """``group``, or the default group; raises when no group is
     initialized."""
     if not dist.is_available() or not dist.is_initialized():
-        raise RuntimeError('atom sharding needs an initialized process group '
+        raise RuntimeError('sharding needs an initialized process group '
                            '(torch.distributed.init_process_group)')
     return group if group is not None else dist.group.WORLD
 

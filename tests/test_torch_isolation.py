@@ -46,7 +46,10 @@ def test_isolation_scan_covers_the_package():
             'memory_passes.py', 'budgets.py', 'launches.py', 'cost.py',
             'quickstart.py', 'md_nve.py', 'fit_snap.py',
             'snap_2j8.py', 'transformer.py', 'attention.py', 'moe.py',
-            'ssm.py', 'layers.py', 'serve.py', 'gemma3_1b.py'} <= names
+            'ssm.py', 'layers.py', 'serve.py', 'gemma3_1b.py',
+            'flash_vjp.py', 'adamw.py', 'compression.py', 'steps.py',
+            'train.py', 'pipeline.py', 'resilience.py'} <= names
+    assert {'optim', 'data'} <= {p.parent.name for p in FILES}
 
 
 @pytest.fixture
@@ -163,6 +166,27 @@ def test_lm_serving_without_card_raises(no_card):
     assert out['tokens'].shape == (1, 2)
 
 
+def test_lm_training_without_card_raises(no_card):
+    """The training entry points default to the card too: the state, the
+    step and ``train.main`` raise without one, and run on the CPU only when
+    asked."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    cfg = get_config('deepseek-7b').reduced(n_layers=2, vocab=64)
+    with pytest.raises(RuntimeError, match='cuda'):
+        steps.init_train_state(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match='cuda'):
+        steps.make_train_step(cfg)
+    with pytest.raises(RuntimeError, match='cuda'):
+        train.main(['--arch', 'gemma3-1b', '--reduced', '--steps', '1'])
+    params, opt = steps.init_train_state(cfg, torch.Generator(),
+                                         device='cpu')
+    tokens = torch.zeros((2, 8), dtype=torch.long)
+    _, _, m = steps.make_train_step(cfg, device='cpu')(
+        params, opt, {'tokens': tokens, 'labels': tokens})
+    assert m['loss'].device.type == 'cpu' and torch.isfinite(m['loss'])
+
+
 def _isolated_rank(rank):
     """One rank of a fresh process group: the new entry points imported
     and run on the CPU, then the modules this process holds."""
@@ -196,6 +220,10 @@ def _isolated_rank(rank):
     out = generate(lm, init_params(lm, torch.Generator(), device='cpu'),
                    torch.zeros((1, 4), dtype=torch.long), 2, device='cpu')
     assert torch.isfinite(out['logits']).all()
+    # the int8-compressed gradient sum, in this group of 2 ranks
+    from repro_torch.optim.compression import quantized_psum
+    total = quantized_psum(torch.full((3,), float(rank + 1)))
+    assert torch.allclose(total, torch.full((3,), 3.0))
     # the analysis registry's sharded entry, inside this group of 2 ranks,
     # as `python -m repro_torch.analysis --ranks 2` runs it a rank
     from repro_torch.analysis.budgets import DEFAULT_PATH, load_budgets
@@ -212,7 +240,8 @@ def _isolated_rank(rank):
 def test_new_entry_points_import_nothing_of_the_reference():
     """fit, make_sharded_force_fn, run_nve(shards=2, impl='baseline'), the
     analysis suite's sharded entry (its gloo collectives allowlisted by
-    name) and the language-model serving loop, run in two spawned ranks (fresh processes that import only this
+    name), the language-model serving loop and the compressed gradient
+    sum, run in two spawned ranks (fresh processes that import only this
     module and the port), leave no jax or repro module in
     ``sys.modules``."""
     from repro_torch.launch.sharding import spawn_ranks
