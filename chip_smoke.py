@@ -123,7 +123,24 @@ compute, f32 master weights and moments) with and without
 ``REPRO_FLASH_VJP=1``, and granite-moe-1b-a400m at full width and depth
 with its 4 microbatches: 3 steps each, the last two timed and under CUDA
 sync debug mode, tok/s and peak memory; one more step of gemma3-1b
-(without the flash backward) and of granite-moe profiled.  At
+(without the flash backward) and of granite-moe profiled.  The mesh
+phase drives the mesh slice (``launch/compat``, ``mesh``, ``sharding``,
+``dryrun``; ``models/specs``, ``shard_utils``; no kernel of its own):
+granite-moe-1b-a400m and gemma3-1b reduced (float32 state) on a (2, 2)
+('data', 'model') mesh of 4 gloo ranks of the card, parameters and
+moments DTensors placed by ``param_shardings`` and ``opt_shardings``,
+3 steps of ``make_train_step`` under ``set_mesh`` against the one-rank
+step on the card (the first step's loss and gradients, the parameters
+after each step), ms a step of both; a checkpoint saved from a (4,)
+mesh and restored onto (2, 2) with P('model', 'data'); ``launch.train``
+on 2 ranks of the card (its debug mesh (1, 2)): 4 steps and a
+checkpoint, then 2 from the restore, against 6 straight; and the dry
+run, started in two subprocesses at the beginning of the run (it needs
+no card): the one-rank prediction of gemma3-1b's full-width B=4,
+S=4096 step held against the train phase's measured peak of that step,
+with the achieved TFLOP/s of the measured step time, and ``python -m
+repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k --mesh
+both`` writing two ``ok`` records.  At
 2J = 14 (float32) it holds the half and full kernels against their plain
 versions and times the half-plane pipeline (median of 5 evaluations after
 warm-up).
@@ -156,7 +173,12 @@ teacher forcing |d| <= 2e-3 + 2e-3 |ref| (the reference's bar); train:
 card vs CPU 1e-4 relative to each leaf's largest value, steps and
 restarts bitwise, the compressed gradient < 2e-2 relative (the
 reference test's bar), the flash backward's first loss within 1e-3 of
-plain autograd's.
+plain autograd's; mesh: sharded vs one rank 1e-4 relative to each
+leaf's largest value (the train phase's card bar) for the first step's
+loss and gradients and the parameters after the 3 steps, the loss
+falling and
+the same on every rank, the reshard and the driver's restart bitwise,
+the dry run's predicted peak within 25 % of the card's.
 Times are medians of CUDA-event timings after
 warm-up (``ms``: one call between two events, wrapper host time
 included) and, for each kernel and library call, device time alone
@@ -2923,15 +2945,354 @@ def train_phase(dev):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the mesh (launch/compat, mesh, sharding, dryrun; models/specs,
+# shard_utils): the sharded train step over gloo ranks of the card, the
+# checkpoint reshard, the driver on a debug mesh, and the dry run
+# ---------------------------------------------------------------------------
+
+MESH_ARCHS = ('granite-moe-1b-a400m', 'gemma3-1b')
+MESH_B, MESH_S, MESH_STEPS = 4, 32, 3
+DRYRUN_TOL = 0.25        # the dry run's predicted peak vs the card's
+DRYRUN_CLI = ['--arch', 'gemma3-1b', '--shape', 'train_4k', '--mesh', 'both']
+
+
+def start_dryruns(out_dir):
+    """The dry run's two subprocesses, started at once (they need no card
+    and run beside the card's phases): the one-rank prediction of
+    gemma3-1b's TRAIN_FULL step through ``dryrun.lower``, and the CLI on
+    DRYRUN_CLI.  Returns {name: (Popen, its output file)}."""
+    import os
+    B, S = TRAIN_FULL['gemma3-1b']
+    code = (
+        'import json; from repro_torch.launch import dryrun; '
+        'from repro_torch.configs import get_config; '
+        'from repro_torch.launch.compat import make_auto_mesh; '
+        'dryrun.fake_world(1); '
+        "m = make_auto_mesh((1, 1), ('data', 'model'), 'cpu'); "
+        f"r = dryrun.lower(get_config('gemma3-1b'), m, 'train', {S}, {B}); "
+        "print('DRYRUN ' + json.dumps(r))")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / 'src'))
+    procs = {}
+    for name, argv in (('one_rank', ['-c', code]),
+                       ('cli', ['-m', 'repro_torch.launch.dryrun',
+                                *DRYRUN_CLI, '--force', '--out',
+                                f'{out_dir}/cells'])):
+        log = open(f'{out_dir}/{name}.log', 'w+')
+        procs[name] = (subprocess.Popen([sys.executable, *argv], env=env,
+                                        stdout=log, stderr=subprocess.STDOUT),
+                       log)
+    return procs
+
+
+def stop_dryruns(procs):
+    for proc, log in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+
+
+def mesh_rank(rank, tmp, dev_type):
+    """One of 4 gloo ranks of the card: each MESH_ARCHS arch reduced on a
+    (2, 2) ('data', 'model') mesh, float32 state, weights drawn on the
+    CPU: MESH_STEPS sharded steps, each step's whole parameters and its
+    host time; then a checkpoint saved from a (4,) mesh and restored onto
+    (2, 2) with P('model', 'data')."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.compat import make_auto_mesh, set_mesh
+    from repro_torch.launch.sharding import (NamedSharding, P,
+                                             batch_shardings, opt_shardings,
+                                             param_shardings, place)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_params, tree_leaves
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import checkpoint as ckpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type, 0)
+    mesh = make_auto_mesh((2, 2), ('data', 'model'), dev_type)
+    out = dict(backend=dist.get_backend(), archs={})
+    for arch in MESH_ARCHS:
+        cfg = get_config(arch).reduced()
+        g = torch.Generator().manual_seed(200 + MESH_ARCHS.index(arch))
+        params = init_params(cfg, g, 'cpu')
+        batch = train_batch(cfg, MESH_B, MESH_S, g, 'cpu')
+        opt = adamw_init(params)
+        pshard = param_shardings(params, mesh)
+        p = place(_to(params, dev), pshard)
+        o = place(_to(opt, dev), opt_shardings(opt, pshard, mesh))
+        step = make_train_step(cfg, device=dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with set_mesh(mesh):    # the first step's loss and gradients
+            loss0, grads0 = train_grads(cfg, p, place(b, batch_shardings(
+                b, mesh)))
+        grads0 = {k: v.full_tensor().cpu().numpy().copy()
+                  for k, v in grads0.items()}
+        loss0 = float(loss0.full_tensor())
+        losses, whole, times = [], [], []
+        for _ in range(MESH_STEPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            with set_mesh(mesh):
+                p, o, m = step(p, o, b)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m['loss'].full_tensor()))
+            whole.append({k: v.full_tensor().cpu().numpy().copy()
+                          for k, v in tree_leaves(p)})
+        out['archs'][arch] = dict(
+            losses=losses, whole=whole if rank == 0 else None, times=times,
+            loss0=loss0, grads0=grads0 if rank == 0 else None,
+            local_device=str(next(iter(tree_leaves(p)))[1]
+                             .to_local().device))
+    tree = {'w': torch.arange(64, dtype=torch.float32,
+                              device=dev).reshape(8, 8)}
+    mesh1 = make_auto_mesh((4,), ('data',), dev_type)
+    ckpt.save(f'{tmp}/step_00000001',
+              place(tree, {'w': NamedSharding(mesh1, P('data'))}), 1)
+    sh2 = {'w': NamedSharding(mesh, P('model', 'data'))}
+    got = ckpt.restore(f'{tmp}/step_00000001', tree, sh2)['w']
+    out['reshard'] = dict(bitwise=torch.equal(got.full_tensor(), tree['w']),
+                          placed=got.placements == sh2['w'].placements,
+                          device=str(got.to_local().device))
+    return out
+
+
+def sync(dev):
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _to(tree, dev):
+    from repro_torch.launch.sharding import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def mesh_driver_rank(rank, root, dev_type):
+    """One of 2 gloo ranks of the card: ``launch.train`` with its debug
+    mesh on gemma3-1b reduced: 4 steps and a checkpoint every 2, the same
+    command to 6, and 6 straight; the whole parameters and state back."""
+    from repro_torch.launch import train
+    from repro_torch.runtime.checkpoint import _flatten, latest_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    argv = ['--arch', 'gemma3-1b', '--reduced', '--batch', '4', '--seq',
+            '32', '--log-every', '100', '--device', dev_type]
+    ck = ['--ckpt', f'{root}/run', '--ckpt-every', '2']
+    train.main(argv + ['--steps', '4'] + ck)
+    resumed = train.main(argv + ['--steps', '6'] + ck)
+    straight = train.main(argv + ['--steps', '6'])
+
+    def whole(r):
+        return {k: v.full_tensor().cpu().numpy() for k, v in
+                _flatten({'p': r['params'], 'o': r['opt']})}
+    return dict(latest=latest_step(f'{root}/run'),
+                start=resumed['start_step'],
+                mesh=tuple(resumed['params']['embed'].device_mesh.shape),
+                resumed=whole(resumed), straight=whole(straight))
+
+
+def mesh_steps(dev, tmp):
+    """The sharded step on 4 gloo ranks of the card against the one-rank
+    step on the card (1e-4 relative to each leaf's largest value after
+    each step, the loss falling), the reshard bitwise, and ms a step of
+    both."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import spawn_ranks
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_params, tree_leaves
+    from repro_torch.optim.adamw import adamw_init
+    numbers = {}
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(mesh_rank, 4, tmp, dev.type)
+        wall = time.perf_counter() - t0
+    except RuntimeError as e:
+        check(False, f'mesh step: 4 gloo ranks of the card failed: '
+              f'{str(e)[-1500:]}')
+        return dict(error=str(e)[-3000:])
+    r0 = ranks[0]
+    for arch in MESH_ARCHS:
+        cfg = get_config(arch).reduced()
+        g = torch.Generator().manual_seed(200 + MESH_ARCHS.index(arch))
+        params = _to(init_params(cfg, g, 'cpu'), dev)
+        batch = {k: v.to(dev) for k, v in
+                 train_batch(cfg, MESH_B, MESH_S, g, 'cpu').items()}
+        opt = adamw_init(params)
+        step = make_train_step(cfg, device=dev)
+        loss0, grads0 = train_grads(cfg, params, batch)
+        got = r0['archs'][arch]
+        grad_err = max([abs(got['loss0'] - float(loss0)) / abs(float(loss0))]
+                       + [float(np.abs(got['grads0'][k] - v.cpu().numpy())
+                                .max() / max(float(v.abs().max()), 1e-30))
+                          for k, v in grads0.items()])
+        errs, times = [], []
+        for i in range(MESH_STEPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            whole = got['whole'][i]
+            errs.append(max(
+                float(np.abs(whole[k] - v.cpu().numpy()).max()
+                      / max(float(v.abs().max()), 1e-30))
+                for k, v in tree_leaves(params)))
+        losses = [r['archs'][arch]['losses'] for r in ranks]
+        falls = all(x[-1] < x[0] for x in losses)
+        same = all(x == losses[0] for x in losses)
+        sharded_ms = statistics.mean(
+            r0['archs'][arch]['times'][1:]) * 1e3
+        one_ms = statistics.mean(times[1:]) * 1e3
+        check(errs[-1] <= LM_TOL and grad_err <= LM_TOL and falls
+              and same,
+              f'mesh step {arch} (reduced, B={MESH_B} S={MESH_S}, float32 '
+              f'state): 4 {r0["backend"]} ranks of one card on a (2, 2) '
+              f'mesh (local tensors on {got["local_device"]}) vs the '
+              f'one-rank step on the card: train_loss and '
+              f'{len(grads0)} gradient leaves max rel err {grad_err:.3e}; '
+              f'parameters after the {MESH_STEPS} steps {errs[-1]:.3e} '
+              f'(after each: {[f"{e:.3e}" for e in errs]}; bar '
+              f'{LM_TOL:.0e}); losses '
+              f'{[round(x, 5) for x in losses[0]]} falling {falls}, the '
+              f'same on every rank {same}; {sharded_ms:.1f} ms a sharded '
+              f'step vs {one_ms:.1f} ms one rank (steps 2-{MESH_STEPS})')
+        numbers[arch] = dict(max_rel_err=errs, grad_rel_err=grad_err,
+                             losses=losses[0],
+                             sharded_ms=sharded_ms, one_rank_ms=one_ms,
+                             sharded_step_s=r0['archs'][arch]['times'])
+    ok = all(r['reshard'] == dict(bitwise=True, placed=True,
+                                  device=str(dev)) for r in ranks)
+    check(ok, f'mesh reshard: a checkpoint saved from a (4,) mesh restored '
+          f'onto (2, 2) P(model, data) on the card, bitwise with the target '
+          f'placements on every rank: {[r["reshard"] for r in ranks]}')
+    numbers.update(reshard_ok=ok, spawn_wall_s=wall, backend=r0['backend'])
+    return numbers
+
+
+def mesh_driver(dev, tmp):
+    """``launch.train`` on 2 gloo ranks of the card, its debug mesh (1, 2):
+    4 steps + a checkpoint + 2 vs 6 straight, bitwise."""
+    from repro_torch.launch.sharding import spawn_ranks
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(mesh_driver_rank, 2, tmp, dev.type)
+        wall = time.perf_counter() - t0
+    except RuntimeError as e:
+        check(False, f'mesh driver: 2 gloo ranks of the card failed: '
+              f'{str(e)[-1500:]}')
+        return dict(error=str(e)[-3000:])
+    ok = all(r['latest'] == 6 and r['start'] == 4 and r['mesh'] == (1, 2)
+             and sorted(r['resumed']) == sorted(r['straight'])
+             and all(np.array_equal(v, r['straight'][k])
+                     for k, v in r['resumed'].items()) for r in ranks)
+    check(ok, f'mesh driver: launch.train --debug-mesh on 2 ranks of the '
+          f'card, mesh {ranks[0]["mesh"]}: 4 steps + checkpoint + 2 from '
+          f'the restore vs 6 straight, {len(ranks[0]["resumed"])} leaves '
+          f'bitwise {ok}; {wall:.1f} s wall')
+    return dict(bitwise=ok, wall_s=wall)
+
+
+def dryrun_vs_card(dry, train_row):
+    """The one-rank dry run of gemma3-1b at TRAIN_FULL against the train
+    phase's own gemma3-1b step on the card: predicted peak vs
+    ``max_memory_allocated`` within DRYRUN_TOL; its FLOP over the measured
+    step time (achieved TFLOP/s); and the CLI's two records."""
+    proc, log = dry['one_rank']
+    proc.wait()
+    log.seek(0)
+    text = log.read()
+    lines = [x for x in text.splitlines() if x.startswith('DRYRUN ')]
+    if proc.returncode or not lines:
+        check(False, f'mesh dry run: the one-rank prediction failed (exit '
+              f'{proc.returncode}): {text[-1500:]}')
+        rec = None
+    else:
+        rec = json.loads(lines[-1][len('DRYRUN '):])
+        pred = rec['memory']['peak_size_in_bytes'] / 1e9
+        card = train_row['peak_gb']
+        miss = abs(pred - card) / card
+        tflops = rec['cost']['flops'] / (train_row['ms_step'] / 1e3) / 1e12
+        check(miss <= DRYRUN_TOL, f'mesh dry run: gemma3-1b B={train_row["B"]}'
+              f' S={train_row["S"]} one rank, predicted peak {pred:.3f} GB '
+              f'(arguments {rec["memory"]["argument_size_in_bytes"] / 1e9:.3f}'
+              f' GB) vs the card\'s {card:.3f} GB, off by {miss:.1%} (bar '
+              f'{DRYRUN_TOL:.0%}); {rec["cost"]["flops"]:.4e} FLOP a step over '
+              f'{train_row["ms_step"]:.1f} ms = {tflops:.1f} TFLOP/s achieved; '
+              f'{rec["step_s"]} s to run')
+        rec.update(card_peak_gb=card, miss=miss, achieved_tflops=tflops)
+    proc, log = dry['cli']
+    proc.wait()
+    log.seek(0)
+    text = log.read()
+    cells = sorted(Path(log.name).parent.glob('cells/*.json'))
+    recs = [json.loads(c.read_text()) for c in cells]
+    ok = proc.returncode == 0 and len(recs) == 2 and all(
+        r['status'] == 'ok' for r in recs)
+    check(ok, f'mesh dry run CLI: python -m repro_torch.launch.dryrun '
+          f'{" ".join(DRYRUN_CLI)} on torch {torch.__version__}: exit '
+          f'{proc.returncode}, records '
+          f'{[(c.name, r["status"]) for c, r in zip(cells, recs)]}'
+          + ('' if ok else f': {text[-1500:]}'))
+    for c, r in zip(cells, recs):
+        if r['status'] == 'ok':
+            print(f'     dry run {c.stem}: peak '
+                  f'{r["memory"]["peak_size_in_bytes"] / 1e9:.3f} GB a '
+                  f'device, {r["cost"]["flops"]:.4e} FLOP, collectives '
+                  f'{r["collectives"]["total_bytes"] / 1e9:.3f} GB, '
+                  f'{r["step_s"]} s', flush=True)
+    return dict(one_rank=rec, cli=[dict(cell=c.stem, **{
+        k: r.get(k) for k in ('status', 'memory', 'cost', 'collectives',
+                              'step_s')}) for c, r in zip(cells, recs)])
+
+
+def mesh_phase(dev, train=None, dry=None):
+    """The mesh on the card: the sharded train step on 4 gloo ranks
+    against one rank, the reshard, the driver's debug mesh on 2 ranks,
+    and the dry run against the card and its CLI (started beforehand by
+    ``start_dryruns``; started here when not).  ``train``: the train
+    phase's numbers (its gemma3-1b TRAIN_FULL step is measured here when
+    absent)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        own = dry is None
+        if own:
+            dry = start_dryruns(tmp)
+        try:
+            numbers = dict(step=mesh_steps(dev, f'{tmp}'))
+            numbers['driver'] = mesh_driver(dev, tmp)
+            row = (train['full'][0] if train is not None else
+                   train_full(dev, 'gemma3-1b', *TRAIN_FULL['gemma3-1b'],
+                              False))
+            numbers['dryrun'] = dryrun_vs_card(dry, row)
+        finally:
+            if own:
+                stop_dryruns(dry)
+    numbers.update(phase_s=time.perf_counter() - t0, card=card_identity())
+    print(f'     mesh phase: {numbers["phase_s"]:.1f} s wall', flush=True)
+    return numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
               'run needs an NVIDIA card', file=sys.stderr)
         return 2
-    from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False   # no kernel here uses a
     torch.backends.cudnn.allow_tf32 = False         # matmul; stated anyway
     dev = torch.device('cuda', 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dry = start_dryruns(tmp)
+        try:
+            return run_phases(dev, dry)
+        finally:
+            stop_dryruns(dry)
+
+
+def run_phases(dev, dry):
+    from repro_torch.kernels import _build
     ident = card_identity()
     print(f'card: {ident}; torch {torch.__version__}, CUDA '
           f'{torch.version.cuda}; allow_tf32 False', flush=True)
@@ -2982,7 +3343,10 @@ def main():
     print('examples: ' + json.dumps(example_numbers, default=str),
           flush=True)
     print('lm: ' + json.dumps(lm_phase(dev)), flush=True)
-    print('train: ' + json.dumps(train_phase(dev), default=str), flush=True)
+    train = train_phase(dev)
+    print('train: ' + json.dumps(train, default=str), flush=True)
+    print('mesh: ' + json.dumps(mesh_phase(dev, train, dry), default=str),
+          flush=True)
     # each phase of this slice launched every kernel of its path
     check(all(analysis_counts[k] > 0 for k in KERNELS),
           f'analysis: every kernel launched ({analysis_counts})')

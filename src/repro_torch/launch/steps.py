@@ -4,9 +4,15 @@
 ``make_train_step`` is forward + backward (``torch.autograd.grad`` over
 the parameter leaves, each group recomputed in the backward) + AdamW.
 The parameters and the optimizer state are updated in place and returned
-(``optim.adamw``).  The activation partition spec of the reference's
-sharded step waits for the port's mesh (``act_partition_spec`` is not
-ported yet), so the step takes none.
+(``optim.adamw``).
+
+On a mesh the parameters and moments are DTensors (``launch.sharding.
+place`` by ``param_shardings`` and ``opt_shardings``) and the step runs
+under ``launch.compat.set_mesh``: it places a plain batch by
+``batch_shardings``, and DTensor's sharding propagation partitions the
+computation, as XLA's partitioner does the reference's jitted step.
+``act_spec`` (from :func:`act_partition_spec`) pins the residual stream
+between and inside the layer groups.
 """
 
 from __future__ import annotations
@@ -15,10 +21,13 @@ import torch
 
 from ..core.snap import resolve_device
 from ..models.config import ModelConfig
+from ..models.shard_utils import is_dtensor, mesh_context
 from ..models.transformer import (decode_step, init_params, prefill,
                                   train_loss, tree_from_paths, tree_leaves,
                                   tree_map, value_and_grad)
 from ..optim.adamw import adamw_init, adamw_update
+from .compat import axis_sizes, current_mesh
+from .sharding import P, batch_shardings, place
 
 # per-arch training numerics policy: everything defaults to float32 master
 # params + float32 moments; the two largest models trade moment precision
@@ -56,56 +65,95 @@ def cast_params(params, dtype_name: str):
     return tree_map(lambda p: p.to(torch.bfloat16), params)
 
 
+def act_partition_spec(cfg: ModelConfig, mesh, seq: int):
+    """Residual-stream constraints [B, S, d] as a (sharded, gathered) pair:
+    between groups the stream is sequence-parallel (S over 'model', bounds
+    remat-saved activations); inside a group it is gathered once.
+
+    Only worthwhile when the residual stream is large (d_model >= 4096),
+    or when the backbone is SSM/hybrid: mamba layers are elementwise along
+    S, so the whole state-update pipeline inherits the S-sharding.  None
+    when neither holds or the model axis does not divide ``seq``."""
+    from .mesh import batch_axes
+    wants_sp = cfg.d_model >= 4096 or cfg.family in ('ssm', 'hybrid')
+    if seq % axis_sizes(mesh).get('model', 1) or not wants_sp:
+        return None
+    ba = batch_axes(mesh)
+    return (P(ba, 'model', None), P(ba, None, None))
+
+
 def _on(batch, dev):
     """The batch's tensors on ``dev`` (numpy arrays or tensors; token ids
-    as int64)."""
+    as int64); under a mesh, plain ones placed by ``batch_shardings``."""
     ids = ('tokens', 'labels')
-    return {k: torch.as_tensor(v).to(dev, dtype=torch.long if k in ids
-                                     else None)
-            for k, v in batch.items()}
+    out = {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(v))
+           .to(dev, dtype=torch.long if k in ids else None)
+           for k, v in batch.items()}
+    mesh = current_mesh()
+    if mesh is None or all(is_dtensor(v) for v in out.values()):
+        return out
+    return place(out, batch_shardings(out, mesh))
+
+
+def _split(v, n: int):
+    """``v`` cut into ``n`` equal parts along its first axis.  A DTensor
+    sharded along it whose ranks' rows split evenly is cut on each rank's
+    own rows (part i holds the i-th n-th of every rank's rows), so that no
+    rows move; the parts sum to the same loss and gradients."""
+    b = v.shape[0]
+    if b % n:
+        raise ValueError(f'batch {b} does not split into {n} microbatches')
+    if is_dtensor(v) and any(pl.is_shard(0) for pl in v.placements) \
+            and v.to_local().shape[0] % n == 0:
+        from torch.distributed.tensor import DTensor
+        local = v.to_local()
+        m = local.shape[0] // n
+        return [DTensor.from_local(local[i * m:(i + 1) * m], v.device_mesh,
+                                   v.placements, run_check=False)
+                for i in range(n)]
+    return [v[i:i + b // n] for i in range(0, b, b // n)]
 
 
 def make_train_step(cfg: ModelConfig, *, state_dtype='float32', lr=3e-4,
-                    microbatches: int = 1, device='cuda'):
+                    act_spec=None, microbatches: int = 1, device='cuda'):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     on ``device`` (the card unless the CPU is asked for; without a card
     the default raises).  ``metrics`` holds ``loss`` and ``grad_norm`` as
     device tensors.  With ``microbatches > 1`` the batch splits evenly
     along its first axis, the gradients accumulate in float32 over the
-    parts, and loss and gradients are divided by ``microbatches``."""
+    parts, and loss and gradients are divided by ``microbatches``.
+    ``act_spec``: None, or the residual stream's (between groups, inside a
+    group) ``NamedSharding`` pair (``forward``'s ``act_sharding``)."""
     dev = resolve_device(device)
 
     def loss_and_grads(params, batch):
         return value_and_grad(
-            lambda p: train_loss(cfg, p, batch, remat=True), params)
+            lambda p: train_loss(cfg, p, batch, remat=True,
+                                 act_sharding=act_spec), params)
 
     def step(params, opt_state, batch):
         batch = _on(batch, dev)
-        if microbatches > 1:
-            b = next(iter(batch.values())).shape[0]
-            if b % microbatches:
-                raise ValueError(f'batch {b} does not split into '
-                                 f'{microbatches} microbatches')
-            parts = [{k: v[i:i + b // microbatches]
-                      for k, v in batch.items()}
-                     for i in range(0, b, b // microbatches)]
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = {path: torch.zeros(p.shape, dtype=torch.float32,
-                                       device=dev)
-                     for path, p in tree_leaves(params)}
-            for part in parts:
-                part_loss, part_grads = loss_and_grads(params, part)
-                loss = loss + part_loss
-                for path, g in part_grads.items():
-                    grads[path] += g.float()
-                del part_grads
-            loss = loss / microbatches
-            grads = {path: g / microbatches for path, g in grads.items()}
-        else:
-            loss, grads = loss_and_grads(params, batch)
-        params, opt_state, metrics = adamw_update(
-            tree_from_paths(grads), opt_state, params, lr=lr,
-            state_dtype=state_dtype)
+        with mesh_context(params):
+            if microbatches > 1:
+                parts = {k: _split(v, microbatches) for k, v in batch.items()}
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+                grads = {path: torch.zeros_like(p, dtype=torch.float32)
+                         for path, p in tree_leaves(params)}
+                for i in range(microbatches):
+                    part_loss, part_grads = loss_and_grads(
+                        params, {k: v[i] for k, v in parts.items()})
+                    loss = loss + part_loss
+                    for path, g in part_grads.items():
+                        grads[path] += g.float()
+                    del part_grads
+                loss = loss / microbatches
+                grads = {path: g / microbatches
+                         for path, g in grads.items()}
+            else:
+                loss, grads = loss_and_grads(params, batch)
+            params, opt_state, metrics = adamw_update(
+                tree_from_paths(grads), opt_state, params, lr=lr,
+                state_dtype=state_dtype)
         metrics['loss'] = loss
         return params, opt_state, metrics
     return step

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .shard_utils import gather_rows, is_dtensor, matmul, pick_last
+
 
 @lru_cache(maxsize=64)
 def rounded(value: float, dtype) -> float:
@@ -69,17 +71,21 @@ def activation(h, w_gate_out):
 
 def mlp(x, w_in, w_gate, w_out):
     """SwiGLU when w_gate is not None, classic GeLU MLP otherwise."""
-    h = x @ w_in.to(x.dtype)
-    g = None if w_gate is None else x @ w_gate.to(x.dtype)
-    return activation(h, g) @ w_out.to(x.dtype)
+    h = matmul(x, w_in.to(x.dtype))
+    g = None if w_gate is None else matmul(x, w_gate.to(x.dtype))
+    return matmul(activation(h, g), w_out.to(x.dtype))
 
 
 def embed(tokens, table):
+    if is_dtensor(table):
+        # DTensor has no rule for indexing a dim-sharded table with 2-D
+        # ids (its vocab-parallel _MaskPartial raises IndexError)
+        return gather_rows(table, tokens)
     return table[tokens]
 
 
 def unembed(x, table, cap: float = 0.0):
-    logits = x @ table.to(x.dtype).T
+    logits = matmul(x, table.to(x.dtype).T)
     return softcap(logits, cap)
 
 
@@ -87,6 +93,10 @@ def _nll(logits, labels):
     """Per-position CE in float32. logits [..., V], labels [...] int."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
+    if is_dtensor(logits):
+        # DTensor's gather along a sharded vocab dim (_MaskPartial) takes
+        # 2-D operands only
+        return logz - pick_last(logits, labels.long())
     return logz - torch.gather(logits, -1, labels[..., None].long())[..., 0]
 
 

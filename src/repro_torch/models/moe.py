@@ -14,6 +14,12 @@ sums a token's k contributions along that axis.  (The reference's scatter
 them with atomics on the card.)  The expert segments come from
 ``searchsorted`` on the sorted ids, which, unlike ``bincount``, reads no
 size back to the host.
+
+Under a mesh the expert axis of ``w_in/w_gate/w_out`` shards over
+``model`` (expert parallelism), and ``_constrain`` pins the dispatch and
+expert buffers to experts over ``model``, capacity over ``data``, at the
+reference's three sites; the routing and the two gathers run on every
+rank over the whole token set.
 """
 
 from __future__ import annotations
@@ -21,6 +27,40 @@ from __future__ import annotations
 import torch
 
 from .layers import activation
+from .shard_utils import (batch_layout, constrain, is_dtensor, matmul,
+                          replicated_on, whole)
+
+
+def _constrain(x, *axes):
+    """The reference's sharding constraint (``shard_utils.constrain``)."""
+    return constrain(x, *axes)
+
+
+def _route(top_e, E: int, C: int):
+    """The dispatch plan from the top-k expert ids ``[T, k]``: the sort
+    order of the T*k (token, choice) pairs by expert, the sorted experts,
+    their tokens, each expert's segment start and count, whether each
+    sorted pair fits its expert's capacity C, its slot in the [E*C]
+    buffer (E*C for the overflow bin), the sorted pair that fills each
+    [E, C] slot, whether that slot is filled, and the inverse order."""
+    top_k = top_e.shape[-1]
+    n = top_e.numel()
+    dev = top_e.device
+    order = torch.argsort(top_e.reshape(-1), stable=True)      # [T*k]
+    se = top_e.reshape(-1)[order]
+    st = order // top_k                                        # token id
+    experts = torch.arange(E, device=dev)
+    seg_start = torch.searchsorted(se, experts)                # [E]
+    counts = torch.searchsorted(se, experts, right=True) - seg_start
+    rank = torch.arange(n, device=dev) - seg_start[se]         # rank in expert
+    keep = rank < C
+    slot = torch.where(keep, se * C + rank, E * C)             # overflow bin
+    cap = torch.arange(C, device=dev)
+    src = (seg_start[:, None] + cap).clamp(max=n - 1)          # [E, C]
+    filled = (cap < counts[:, None])[..., None]
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n, device=dev))
+    return order, st[src], keep, slot, filled, inv
 
 
 def moe_ffn(x, router_w, w_in, w_gate, w_out, *, top_k, capacity_factor):
@@ -31,11 +71,16 @@ def moe_ffn(x, router_w, w_in, w_gate, w_out, *, top_k, capacity_factor):
     B, S, d = x.shape
     E = router_w.shape[-1]
     T = B * S
-    n = T * top_k
-    dev = x.device
     xt = x.reshape(T, d)
-
-    gates = xt.float() @ router_w.float()
+    gates = matmul(xt.float(), router_w.float())
+    mesh = xt.device_mesh if is_dtensor(xt) else None
+    if mesh is not None:
+        # the routing, dispatch and combine index the whole token set
+        # (argsort, searchsorted, scatter_ and these gathers have no
+        # DTensor rule that keeps the tokens split): on a mesh every rank
+        # runs them on the whole tokens and expert outputs, as plain
+        # tensors; the expert FFNs stay sharded
+        xt, gates = whole(xt), whole(gates)
     probs = torch.softmax(gates, dim=-1)                       # [T, E]
     top_p, top_e = torch.topk(probs, top_k, dim=-1, sorted=True)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -44,36 +89,33 @@ def moe_ffn(x, router_w, w_in, w_gate, w_out, *, top_k, capacity_factor):
     C = max(8, min(C, T))
 
     # --- dispatch: replicate k ways, sort by expert, rank within expert ---
-    order = torch.argsort(top_e.reshape(-1), stable=True)      # [T*k]
-    se = top_e.reshape(-1)[order]
-    st = order // top_k                                        # token id
+    order, tok, keep, slot, filled, inv = _route(top_e, E, C)
     sp = top_p.reshape(-1)[order]
-    experts = torch.arange(E, device=dev)
-    seg_start = torch.searchsorted(se, experts)                # [E]
-    counts = torch.searchsorted(se, experts, right=True) - seg_start
-    rank = torch.arange(n, device=dev) - seg_start[se]         # rank in expert
-    keep = rank < C
-    slot = torch.where(keep, se * C + rank, E * C)             # overflow bin
-
-    cap = torch.arange(C, device=dev)
-    src = (seg_start[:, None] + cap).clamp(max=n - 1)          # [E, C]
-    filled = (cap < counts[:, None])[..., None]
-    disp = torch.where(filled, xt[st[src]], 0)                 # [E, C, d]
+    disp = torch.where(filled, xt[tok], 0)                     # [E, C, d]
+    if mesh is not None:
+        disp = replicated_on(mesh, disp)
+    # dispatch/expert-compute buffers: experts over 'model' (EP), capacity
+    # over 'data'
+    disp = _constrain(disp, 'model', 'data', None)
 
     # --- expert FFN (batched over the expert axis) ---
     h = torch.bmm(disp, w_in.to(x.dtype))
     g = None if w_gate is None else torch.bmm(disp, w_gate.to(x.dtype))
-    out_e = torch.bmm(activation(h, g), w_out.to(x.dtype))
+    h = _constrain(activation(h, g), 'model', 'data', None)
+    out_e = _constrain(torch.bmm(h, w_out.to(x.dtype)), 'model', 'data',
+                       None)
+    if mesh is not None:
+        out_e = whole(out_e)
 
     # --- combine: back to token order, weight by gate prob, sum over k ---
     flat_out = out_e.reshape(E * C, d)
     gathered = torch.where(keep[:, None],
                            flat_out[slot.clamp(max=E * C - 1)], 0)
     contrib = gathered.float() * sp[:, None] * keep[:, None]
-    inv = torch.empty_like(order).scatter_(
-        0, order, torch.arange(n, device=dev))
-    y = contrib[inv].reshape(T, top_k, d).sum(1)
-    return y.to(x.dtype).reshape(B, S, d), probs
+    y = contrib[inv].reshape(T, top_k, d).sum(1).to(x.dtype)
+    if mesh is not None:    # each rank keeps its own tokens
+        y, probs = (batch_layout(replicated_on(mesh, t)) for t in (y, probs))
+    return y.reshape(B, S, d), probs
 
 
 def load_balance_loss(probs, top_e, n_experts):

@@ -19,6 +19,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .shard_utils import matmul
+
 
 def _softplus(x):
     """``jax.nn.softplus``: logaddexp(x, 0)."""
@@ -98,16 +100,16 @@ def mamba1_forward(x, p, cfg, state: MambaState | None = None, chunk=64):
     B, S, _ = x.shape
     d_in = cfg.d_inner
     N = cfg.ssm_state
-    xz = x @ p['in_proj'].to(x.dtype)
+    xz = matmul(x, p['in_proj'].to(x.dtype))
     xs, z = xz[..., :d_in], xz[..., d_in:]
     xs, conv_state = causal_conv1d(
         xs, p['conv_w'].to(x.dtype), None if state is None else state.conv)
     xs = F.silu(xs.float()).to(x.dtype)
 
-    proj = xs @ p['x_proj'].to(x.dtype)
+    proj = matmul(xs, p['x_proj'].to(x.dtype))
     r = cfg.dt_rank
     dt, Bc, Cc = proj[..., :r], proj[..., r:r + N], proj[..., r + N:]
-    dt = dt @ p['dt_proj'].to(x.dtype)
+    dt = matmul(dt, p['dt_proj'].to(x.dtype))
     dt = _softplus(dt.float() + p['dt_bias'].float())
     A = -torch.exp(p['A_log'].float())                   # [d_in, N]
     h0 = (x.new_zeros((B, d_in, N), dtype=torch.float32)
@@ -137,7 +139,7 @@ def mamba1_forward(x, p, cfg, state: MambaState | None = None, chunk=64):
         y = torch.cat(ys, 1)[:, :S]
         y = y + xs.float() * p['D'].float()
     y = y * F.silu(z.float())
-    out = y.to(x.dtype) @ p['out_proj'].to(x.dtype)
+    out = matmul(y.to(x.dtype), p['out_proj'].to(x.dtype))
     return out, MambaState(conv=conv_state, h=h_last.float())
 
 
@@ -154,7 +156,7 @@ def mamba2_forward(x, p, cfg, state: MambaState | None = None, chunk=64):
     N = cfg.ssm_state
     P = cfg.ssm_head_p
     H = cfg.ssm_heads
-    zxbcdt = x @ p['in_proj'].to(x.dtype)
+    zxbcdt = matmul(x, p['in_proj'].to(x.dtype))
     z, xs, Bc, Cc, dt = torch.tensor_split(
         zxbcdt, [d_in, 2 * d_in, 2 * d_in + N, 2 * d_in + 2 * N], dim=-1)
     conv_in = torch.cat([xs, Bc, Cc], dim=-1)
@@ -214,7 +216,7 @@ def mamba2_forward(x, p, cfg, state: MambaState | None = None, chunk=64):
     var = yf.square().mean(-1, keepdim=True)
     y = (yf * torch.rsqrt(var + 1e-6)
          * (1 + p['norm_w'].float())).to(x.dtype)
-    out = y @ p['out_proj'].to(x.dtype)
+    out = matmul(y, p['out_proj'].to(x.dtype))
     return out, MambaState(conv=conv_state, h=h_last.float())
 
 

@@ -43,6 +43,9 @@ from .config import ModelConfig
 from .layers import (chunked_lm_loss, embed, mlp, rms_norm, rope, rounded,
                      unembed)
 from .moe import moe_ffn
+from .shard_utils import (batch_layout, is_dtensor, matmul, mesh_context,
+                          on_batch_rows, pin, reshard, unflatten_last,
+                          whole_dims)
 from .ssm import (MambaState, mamba1_forward, mamba2_forward,
                   mamba_param_shapes)
 
@@ -198,8 +201,9 @@ def value_and_grad(fn, params):
     caller's tensors keep ``requires_grad`` as they were)."""
     req = {p: t.detach().requires_grad_(True)
            for p, t in tree_leaves(params)}
-    out = fn(tree_from_paths(req))
-    grads = torch.autograd.grad(out, list(req.values()))
+    with mesh_context(params):   # the backward's recomputation too
+        out = fn(tree_from_paths(req))
+        grads = torch.autograd.grad(out, list(req.values()))
     return out.detach(), dict(zip(req, grads))
 
 
@@ -259,7 +263,17 @@ class TransformerLM(_Tree):
 
 def _proj(h, w):
     """[B, S, d] x [d, H, hd] -> [B, S, H, hd]."""
-    return torch.einsum('bsd,dhk->bshk', h, w.to(h.dtype))
+    if not is_dtensor(w):
+        return torch.einsum('bsd,dhk->bshk', h, w.to(h.dtype))
+    # on a mesh, the one matmul that the einsum is, with the (H, hd) pair
+    # merged and split under placements DTensor can split: a weight
+    # sharded on hd alone (the rules' fallback where the heads do not
+    # split) is made whole on hd, the product whole on its merged dim
+    # where the mesh shards it more ways than H divides, and each merged
+    # operand's gradient pinned to its forward placements (pin)
+    d, H, hd = w.shape
+    out = matmul(h, pin(whole_dims(w, 2).reshape(d, H * hd)).to(h.dtype))
+    return unflatten_last(out, (H, hd))
 
 
 def _proj_qkv(cfg, p, h, positions, prefix=''):
@@ -273,8 +287,14 @@ def _proj_qkv(cfg, p, h, positions, prefix=''):
 
 
 def _attn_out(p, attn, prefix=''):
-    return torch.einsum('bshk,hkd->bsd', attn,
-                        p[prefix + 'wo'].to(attn.dtype))
+    wo = p[prefix + 'wo']
+    if not is_dtensor(wo):
+        return torch.einsum('bshk,hkd->bsd', attn, wo.to(attn.dtype))
+    H, hd, d = wo.shape     # on a mesh: as in _proj
+    # head_dim whole first (a sharded inner dim merges into a strided
+    # shard, whose redistributions DTensor plans by a slow graph search)
+    return matmul(pin(whole_dims(attn, 3).flatten(2)), pin(whole_dims(
+        wo, 1).reshape(H * hd, d)).to(attn.dtype))
 
 
 def _cross(cfg, p, h, x, cross_kv, enc_out):
@@ -290,17 +310,38 @@ def _cross(cfg, p, h, x, cross_kv, enc_out):
     return x + _attn_out(p, attn, 'x')
 
 
+def _write_slot(buf, slot: int, x):
+    """``buf[:, slot] = x[:, 0]`` in place.  A DTensor cache is written on
+    its own shard: the rank whose slice of the sequence dim holds ``slot``
+    writes it (a slice of a split dim would be a copy, not a view)."""
+    if not is_dtensor(buf):
+        buf[:, slot:slot + 1].copy_(x)
+        return
+    from torch.distributed.tensor import Replicate
+    from .attention import _seq_shard
+    off, n = _seq_shard(buf)
+    x = x.redistribute(buf.device_mesh, [
+        Replicate() if p.is_shard(1) else p for p in buf.placements])
+    if off <= slot < off + n:
+        buf.to_local()[:, slot - off:slot - off + 1].copy_(x.to_local())
+
+
 def apply_block(cfg: ModelConfig, p, tag: str, x, positions,
                 cache=None, pos=None, cross_kv=None, enc_out=None):
     """Apply one block.  Prefill when cache is None; decode otherwise, at
     position ``pos`` (a Python int), writing the step into ``cache``'s
     buffers in place.  Returns (x, new_cache)."""
+    x = batch_layout(x)     # a DTensor's: the data-parallel layout
     new_cache = cache
     if tag in ('mamba1', 'mamba2'):
         h = rms_norm(x, p['ln1'], cfg.norm_eps)
         fwd = mamba1_forward if tag == 'mamba1' else mamba2_forward
         state = None if cache is None else MambaState(**cache)
-        y, new_state = fwd(h, p, cfg, state)
+        if is_dtensor(h):   # the scans reshape S, which DTensor refuses
+            y, new_state = on_batch_rows(
+                lambda hl, pl, st: fwd(hl, pl, cfg, st), h, p, state)
+        else:
+            y, new_state = fwd(h, p, cfg, state)
         if cache is None:
             new_cache = dict(conv=new_state.conv, h=new_state.h)
         else:
@@ -343,8 +384,8 @@ def apply_block(cfg: ModelConfig, p, tag: str, x, positions,
     else:  # decode: update the cache in place, attend to it
         W = cache['k'].shape[1]
         slot = pos % W if tag == 'local' else pos
-        cache['k'][:, slot:slot + 1].copy_(k)
-        cache['v'][:, slot:slot + 1].copy_(v)
+        _write_slot(cache['k'], slot, k)
+        _write_slot(cache['v'], slot, v)
         attn = decode_attention(q, cache['k'], cache['v'], min(pos + 1, W),
                                 softcap_val=cfg.softcap_attn)
     x = x + _attn_out(p, attn)
@@ -403,10 +444,10 @@ def _encoder_forward(cfg, params, enc_embeds):
 
 
 def _hidden(cfg, params, tokens, frontend_embeds, collect_cache,
-            remat=False):
+            remat=False, act_sharding=None):
     """Final hidden states [B, S, d] and, when ``collect_cache``, the
     prefill cache; with ``remat`` each group is recomputed in the
-    backward."""
+    backward; ``act_sharding`` pins the residual stream (``forward``)."""
     params = cast_for_compute(params, cfg.adtype)
     x = _embed_scaled(cfg, params, tokens)
     S = tokens.shape[1]
@@ -420,6 +461,9 @@ def _hidden(cfg, params, tokens, frontend_embeds, collect_cache,
 
     def group_body(x, gp):
         kvs = {}
+        if act_sharding is not None:
+            # one gather of the sequence axis at group entry
+            x = reshard(x, act_sharding[1])
         for i, tag in enumerate(cfg.pattern):
             x, aux = apply_block(cfg, gp[f'sub{i}'], tag, x, positions,
                                  enc_out=cross_src)
@@ -430,6 +474,9 @@ def _hidden(cfg, params, tokens, frontend_embeds, collect_cache,
                                  positions)
             if collect_cache:
                 kvs['shared'] = aux
+        if act_sharding is not None:
+            # scatter back: the saved residual stream stays sharded
+            x = reshard(x, act_sharding[0])
         return x, kvs
 
     group_caches = []
@@ -455,10 +502,14 @@ def _hidden(cfg, params, tokens, frontend_embeds, collect_cache,
         for i, tag in enumerate(cfg.pattern):
             if tag in ('cross', 'cross_dec'):
                 gp = params['groups'][f'sub{i}']
-                xk.append(torch.einsum('bsd,ndgk->nbsgk', cross_src,
-                                       gp['xwk'].to(cross_src.dtype)))
-                xv.append(torch.einsum('bsd,ndgk->nbsgk', cross_src,
-                                       gp['xwv'].to(cross_src.dtype)))
+                for out, w in ((xk, gp['xwk']), (xv, gp['xwv'])):
+                    if is_dtensor(w):   # per group, as in _proj
+                        out.append(torch.stack([_proj(cross_src, w[j])
+                                                for j in range(len(w))]))
+                    else:
+                        out.append(torch.einsum('bsd,ndgk->nbsgk',
+                                                cross_src,
+                                                w.to(cross_src.dtype)))
         if xk:
             caches['cross_k'] = torch.cat(xk, dim=0)
             caches['cross_v'] = torch.cat(xv, dim=0)
@@ -471,7 +522,7 @@ def _table(cfg, params):
 
 def forward(cfg: ModelConfig, params, tokens, *, frontend_embeds=None,
             remat: bool = False, collect_cache: bool = False,
-            return_hidden: bool = False):
+            act_sharding=None, return_hidden: bool = False):
     """Training/prefill forward pass over the whole sequence.
 
     Returns (logits [B, S, V], caches) — caches is the tree of per-layer
@@ -480,30 +531,38 @@ def forward(cfg: ModelConfig, params, tokens, *, frontend_embeds=None,
     ``remat`` recomputes each stacked group in the backward (the
     reference's ``jax.checkpoint`` of its scan body); it changes no bit of
     the result or of its gradients.  Off by default: prefill and serving
-    run no backward.
+    run no backward.  ``act_sharding``: None, or a (between groups, inside
+    a group) pair of ``launch.sharding.NamedSharding`` for the residual
+    stream [B, S, d] of DTensor parameters (the reference's explicit
+    sequence-parallel transitions); it changes no value.
     """
-    x, params, caches = _hidden(cfg, params, tokens, frontend_embeds,
-                                collect_cache, remat)
-    if return_hidden:
-        return x, _table(cfg, params)
-    return unembed(x, _table(cfg, params), cfg.softcap_final), caches
+    with mesh_context(params):
+        x, params, caches = _hidden(cfg, params, tokens, frontend_embeds,
+                                    collect_cache, remat, act_sharding)
+        if return_hidden:
+            return x, _table(cfg, params)
+        return unembed(x, _table(cfg, params), cfg.softcap_final), caches
 
 
 def prefill(cfg: ModelConfig, params, tokens, frontend_embeds=None):
     """Process a full prompt; returns (last-position logits [B, 1, V],
     prefill cache).  Only the last position is unembedded."""
-    x, params, cache = _hidden(cfg, params, tokens, frontend_embeds, True)
-    return unembed(x[:, -1:], _table(cfg, params), cfg.softcap_final), cache
+    with mesh_context(params):
+        x, params, cache = _hidden(cfg, params, tokens, frontend_embeds,
+                                   True)
+        return (unembed(x[:, -1:], _table(cfg, params), cfg.softcap_final),
+                cache)
 
 
 def train_loss(cfg: ModelConfig, params, batch, remat: bool = True,
-               loss_chunks: int = 8):
+               loss_chunks: int = 8, act_sharding=None):
     """Mean next-token CE of ``batch`` (``tokens``, ``labels``, optional
     ``frontend``): ``forward``'s hidden states through
     ``chunked_lm_loss``."""
     hidden, table = forward(cfg, params, batch['tokens'],
                             frontend_embeds=batch.get('frontend'),
-                            remat=remat, return_hidden=True)
+                            remat=remat, act_sharding=act_sharding,
+                            return_hidden=True)
     return chunked_lm_loss(hidden, table, batch['labels'],
                            cap=cfg.softcap_final, n_chunks=loss_chunks)
 
@@ -576,6 +635,11 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     in place and returns the same tree: the cache passed in is consumed
     (clone it first to run a step twice from one state).  Nothing is read
     back to the host."""
+    with mesh_context(params):
+        return _decode(cfg, params, cache, tokens, pos)
+
+
+def _decode(cfg, params, cache, tokens, pos):
     params = cast_for_compute(params, cfg.adtype)
     x = _embed_scaled(cfg, params, tokens)
     positions = torch.full((1, 1), pos, dtype=torch.long, device=x.device)

@@ -13,6 +13,12 @@ peak (~16 GB more for gemma3-1b), where the reference's jitted step
 donates its inputs.  Clone a state to update it twice.  Nothing is read
 back to the host: the step count, the bias corrections and the clip scale
 stay on the parameters' device.
+
+On DTensor parameters (a mesh) the update runs through DTensor's
+sharding propagation, and each moment keeps its own placements (for int8,
+``opt_shardings``' placements of the ``QTensor`` fields).  The int8 block
+quantization runs on each rank's rows with the blocked (last) dim made
+whole first, so it gives the unsharded result on a sharded leaf.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..models.shard_utils import is_dtensor, mesh_context
 from ..models.transformer import tree_leaves, tree_map
 
 BLOCK = 128
@@ -57,6 +64,24 @@ def dequantize_i8(q, scale, n):
     return x[..., :n]
 
 
+def _by_rows(fn, lead: int, *xs):
+    """``fn`` of the local tensors of DTensors ``xs`` redistributed so that
+    only their first ``lead`` dims stay sharded; its results DTensors with
+    those placements.  The block quantization works along the trailing
+    dims only, so a rank whose trailing dims are whole quantizes its own
+    rows exactly as the unsharded leaf would be (a plain ``xs``:
+    ``fn(*xs)``)."""
+    if not is_dtensor(xs[0]):
+        return fn(*xs)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = xs[0].device_mesh
+    pl = [p if p.is_shard() and p.dim < lead else Replicate()
+          for p in xs[0].placements]
+    out = fn(*(x.redistribute(mesh, pl).to_local() for x in xs))
+    return tuple(DTensor.from_local(t, mesh, pl, run_check=False)
+                 if isinstance(t, torch.Tensor) else t for t in out)
+
+
 class QTensor(NamedTuple):
     q: torch.Tensor
     scale: torch.Tensor
@@ -70,10 +95,10 @@ def adamw_init(params, state_dtype: str = 'float32'):
     """``{'m', 'v'}`` zero moments shaped like ``params`` (``QTensor``
     leaves for ``'int8'``) and an int32 ``count`` of 0, on the device of
     the parameters."""
-    def zero_like(p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zero_like(p):   # a DTensor's moments take its placements
+        z = torch.zeros_like(p, dtype=torch.float32)
         if state_dtype == 'int8':
-            q, s, _ = quantize_i8(z)
+            q, s, _ = _by_rows(quantize_i8, z.ndim - 1, z)
             return QTensor(q=q, scale=s)
         return z
     dev = tree_leaves(params)[0][1].device
@@ -97,6 +122,13 @@ def adamw_update(grads, state, params, *, lr=1e-4, b1=0.9, b2=0.95,
     only, and bias corrections from the float32 step count.  Writes into
     ``params`` and ``state`` and returns ``(params, state, {'grad_norm'})``.
     """
+    with mesh_context(params):
+        return _update(grads, state, params, lr, b1, b2, eps, weight_decay,
+                       clip_norm, state_dtype)
+
+
+def _update(grads, state, params, lr, b1, b2, eps, weight_decay, clip_norm,
+            state_dtype):
     count = state['count'].add_(1)
     c = count.float()
     bc1, bc2 = 1 - b1 ** c, 1 - b2 ** c
@@ -110,8 +142,9 @@ def adamw_update(grads, state, params, *, lr=1e-4, b1=0.9, b2=0.95,
         m, v = flat_m[path], flat_v[path]
         if state_dtype == 'int8':
             n = p.shape[-1]
-            m_f = dequantize_i8(m.q, m.scale, n)
-            v_f = dequantize_i8(v.q, v.scale, n)
+            (m_f,), (v_f,) = (
+                _by_rows(lambda q, s: (dequantize_i8(q, s, n),),
+                         qt.q.ndim - 2, qt.q, qt.scale) for qt in (m, v))
         else:
             m_f, v_f = m, v
         m_f = b1 * m_f + (1 - b1) * g
@@ -122,7 +155,7 @@ def adamw_update(grads, state, params, *, lr=1e-4, b1=0.9, b2=0.95,
         p.copy_(p.float() - lr * upd)
         if state_dtype == 'int8':
             for qt, x in ((m, m_f), (v, v_f)):
-                q, s, _ = quantize_i8(x)
+                q, s, _ = _by_rows(quantize_i8, x.ndim - 1, x)
                 qt.q.copy_(q)
                 qt.scale.copy_(s)
         else:

@@ -7,7 +7,7 @@ gathered ranks locally, each weighted by its scale: 4x fewer bytes on the
 wire, and an error of at most max|x| / 254 a rank and element.
 
 The group is the caller's (``torch.distributed``; see
-``launch/sharding.spawn_ranks``).  A gloo group takes the card's tensors
+``launch/sharding.spawn_ranks``), or one axis of the caller's mesh.  A gloo group takes the card's tensors
 in its collectives and moves them through the host itself.
 """
 
@@ -45,18 +45,31 @@ def quantized_psum_tree(tree, group=None):
     return tree_map(lambda g: quantized_psum(g, group), tree)
 
 
-def make_dp_compressed_grad(loss_fn, group=None):
+def make_dp_compressed_grad(loss_fn, mesh=None, axis: str = 'pod'):
     """Data-parallel gradient with an int8-compressed reduction.
 
     ``loss_fn(params, batch) -> scalar``, ``params`` a nested dict of
     tensors (the same on every rank).  Returns ``fn(params, batch) ->
-    (loss_mean, grads_mean)``, called on every rank with that rank's
-    equal share of the global batch: the loss is averaged over the ranks
-    with an all-reduce, the gradients with ``quantized_psum`` / world."""
+    (loss_mean, grads_mean)``: the loss is averaged over the ranks with an
+    all-reduce, the gradients with ``quantized_psum`` / n.
+
+    With a ``mesh`` (a ``DeviceMesh``), as the reference: ``batch`` is the
+    global batch, each rank takes the share of its coordinate along
+    ``axis`` (dim 0 cut into ``mesh`` size-of-``axis`` equal parts), and
+    the reduction runs over ``mesh.get_group(axis)``.  Without one, every
+    rank of the default group passes its own equal share of the global
+    batch, and the reduction runs over that group."""
     def fn(params, batch):
-        g = group_of(group)
+        if mesh is None:
+            g, part = group_of(None), batch
+        else:
+            g = mesh.get_group(axis)
+            c, k = mesh.get_local_rank(axis), mesh.size(
+                mesh.mesh_dim_names.index(axis))
+            part = tree_map(lambda x: x[c * (x.shape[0] // k):
+                                        (c + 1) * (x.shape[0] // k)], batch)
         n = dist.get_world_size(g)
-        loss, grads = value_and_grad(lambda p: loss_fn(p, batch), params)
+        loss, grads = value_and_grad(lambda p: loss_fn(p, part), params)
         loss = loss.clone()
         dist.all_reduce(loss, group=g)
         return loss / n, tree_from_paths(

@@ -16,10 +16,12 @@ names, so a checkpoint written by either package is read by the other.
   at least one complete copy (tmp, old or final) is on disk.
 - Async save (:class:`AsyncCheckpointer`): every leaf is copied to host
   memory synchronously, the files are written on a worker thread.
-- :func:`restore` places each leaf on a device (one, or a tree of them)
-  and, with ``slices``, gives a rank its :class:`RankSlice` of the leaves
-  that carry the atom axis (the reference places a leaf with a sharding of
-  its mesh instead).
+- :func:`restore` places each leaf on a device or by a ``NamedSharding``
+  of a mesh (one, or a tree of them) and, with ``slices``, gives a rank
+  its :class:`RankSlice` of the leaves that carry the atom axis.
+- DTensor leaves (a mesh): every rank of the mesh saves together; each
+  leaf is gathered whole and written once, by the mesh's first rank, so
+  the files are the reference's, whatever mesh wrote them.
 
 Leaves may be numpy arrays or torch tensors (copied to the host).  A
 bfloat16 leaf is stored as its raw 2-byte values (numpy's ``|V2``, named
@@ -99,10 +101,25 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _dtensor_type():
+    import torch.distributed as dist
+    if not dist.is_available():
+        return ()
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _whole(x):
+    """A DTensor's global value (gathered on every rank of its mesh: all
+    of them must call); anything else unchanged."""
+    return x.full_tensor() if isinstance(x, _dtensor_type()) else x
+
+
 def host_array(x) -> np.ndarray:
-    """A tensor (copied from its device) or array-like as a numpy array."""
+    """A tensor (copied from its device; a DTensor gathered whole) or
+    array-like as a numpy array."""
     if isinstance(x, torch.Tensor):
-        return _numpy(x.detach().cpu())
+        return _numpy(_whole(x).detach().cpu())
     return np.asarray(x)
 
 
@@ -110,12 +127,35 @@ def _host_copy(x) -> np.ndarray:
     """A host copy of a leaf that shares no memory with it (``.cpu()`` of
     a CPU tensor and ``np.asarray`` of an array alias their input)."""
     if isinstance(x, torch.Tensor):
-        return _numpy(x.detach().to('cpu', copy=True))
+        return _numpy(_whole(x).detach().to('cpu', copy=True))
     return np.array(x, copy=True)
 
 
+def _meshes(tree) -> list:
+    return [leaf.device_mesh for _, leaf in _flatten(tree)
+            if isinstance(leaf, _dtensor_type())]
+
+
+def _writes(tree) -> bool:
+    """Whether this rank writes ``tree``: always, unless a leaf is a
+    DTensor and this rank is not the first rank of its mesh."""
+    import torch.distributed as dist
+    meshes = _meshes(tree)
+    return not meshes or dist.get_rank() == int(meshes[0].mesh.flatten()[0])
+
+
 def save(ckpt_dir, tree, step: int, extra: Optional[Dict] = None):
-    """Synchronous atomic checkpoint write."""
+    """Synchronous atomic checkpoint write.  A tree with DTensor leaves is
+    saved by every rank of their mesh together: each leaf is gathered
+    whole, the mesh's first rank writes it once, and every rank returns
+    once the checkpoint is complete."""
+    import torch.distributed as dist
+    if _meshes(tree):
+        arrays = [host_array(leaf) for _, leaf in _flatten(tree)]
+        if _writes(tree):
+            save(ckpt_dir, _unflatten(tree, iter(arrays)), step, extra)
+        dist.barrier()
+        return
     ckpt_dir = Path(ckpt_dir)
     tmp = ckpt_dir.with_suffix('.tmp')
     if tmp.exists():
@@ -160,6 +200,8 @@ class AsyncCheckpointer:
         self.wait()
         host_tree = _unflatten(tree, iter(
             [_host_copy(leaf) for _, leaf in _flatten(tree)]))
+        if not _writes(tree):       # another rank of the mesh writes it
+            return
 
         def work():
             try:
@@ -205,8 +247,10 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 def _per_leaf(spec, n: int, what: str) -> list:
     """One entry of ``spec`` a leaf: ``spec`` itself for every leaf when
-    it is a single device, slice or None, else its flattened tree."""
-    if spec is None or isinstance(spec, (str, torch.device, RankSlice)):
+    it is a single device, sharding, slice or None, else its flattened
+    tree."""
+    if spec is None or isinstance(spec, (str, torch.device, RankSlice)) \
+            or hasattr(spec, 'placements'):
         return [spec] * n
     got = [x for _, x in _flatten(spec)]
     if len(got) != n:
@@ -226,12 +270,26 @@ def _read_leaf(path, name: str, cut: Optional[RankSlice], shape,
     return arr if cut is None else np.array(arr[cut.rows(arr.shape[0])])
 
 
+def _placed(t: torch.Tensor, where):
+    """``t`` on a device, or a DTensor by a ``launch.sharding.
+    NamedSharding`` (every rank holds the whole leaf, so its shard is cut
+    locally)."""
+    if hasattr(where, 'placements'):
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t.to(where.mesh.device_type), where.mesh,
+                                 where.placements, src_data_rank=None)
+    return t.to(device=torch.device(where or 'cpu'))
+
+
 def restore(ckpt_dir, target_tree, devices=None, slices=None):
     """Restore into the structure of ``target_tree`` (leaves: tensors,
-    arrays or anything with ``shape`` and ``dtype``, the whole logical
-    shape): each leaf cast to its target's dtype (torch or numpy) and
-    placed on ``devices`` — one device for every leaf, or a tree of devices
-    shaped like ``target_tree``; None gives CPU tensors.
+    DTensors, arrays or anything with ``shape`` and ``dtype``, the whole
+    logical shape): each leaf cast to its target's dtype (torch or numpy)
+    and placed by ``devices`` — one device or ``NamedSharding`` for every
+    leaf, or a tree of them shaped like ``target_tree``; None gives CPU
+    tensors.  A ``NamedSharding`` makes the leaf a DTensor of its mesh,
+    which need not be the mesh that saved it (the reference's resharding
+    restore).
 
     ``slices``: None, or a tree shaped like ``target_tree`` of
     :class:`RankSlice` (this rank's rows along the atom axis; only those
@@ -255,9 +313,8 @@ def restore(ckpt_dir, target_tree, devices=None, slices=None):
                                            cuts):
         arr = _read_leaf(ckpt_dir / meta['file'], name, cut, tgt.shape,
                          'target')
-        out.append(_tensor(arr).to(
-            device=torch.device(dev or 'cpu'),
-            dtype=_torch_dtype(tgt.dtype)))
+        out.append(_placed(_tensor(arr).to(dtype=_torch_dtype(tgt.dtype)),
+                           dev))
     return _unflatten(target_tree, iter(out))
 
 

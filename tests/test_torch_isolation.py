@@ -52,6 +52,16 @@ def test_isolation_scan_covers_the_package():
     assert {'optim', 'data'} <= {p.parent.name for p in FILES}
 
 
+def test_isolation_scan_covers_the_mesh_modules():
+    """The mesh slice's modules are in the scan above: the mesh, its
+    ambient setter, the dry run, the input specs and the constraints."""
+    rel = {str(p.relative_to(ROOT / 'src' / 'repro_torch')) for p in FILES
+           if p.is_relative_to(ROOT / 'src' / 'repro_torch')}
+    assert {'launch/compat.py', 'launch/mesh.py', 'launch/dryrun.py',
+            'launch/sharding.py', 'models/specs.py',
+            'models/shard_utils.py'} <= rel
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -185,6 +195,23 @@ def test_lm_training_without_card_raises(no_card):
     _, _, m = steps.make_train_step(cfg, device='cpu')(
         params, opt, {'tokens': tokens, 'labels': tokens})
     assert m['loss'].device.type == 'cpu' and torch.isfinite(m['loss'])
+
+
+def test_train_debug_mesh_without_card_raises(no_card, tmp_path):
+    """``launch/train.py --debug-mesh`` asks for the card by default and
+    raises without one, before it makes a process group or a mesh; with
+    ``--device cpu`` it trains on a one-rank debug mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    argv = ['--arch', 'deepseek-7b', '--reduced', '--steps', '1', '--batch',
+            '2', '--seq', '8', '--debug-mesh']
+    with pytest.raises(RuntimeError, match='cuda'):
+        train.main(argv)
+    assert not dist.is_initialized()
+    out = train.main(argv + ['--device', 'cpu'])
+    assert len(out['losses']) == 1 and np.isfinite(out['losses']).all()
+    assert out['params']['embed'].device.type == 'cpu'
+    assert not dist.is_initialized()
 
 
 def _isolated_rank(rank):
