@@ -2951,7 +2951,10 @@ def train_phase(dev):
 # checkpoint reshard, the driver on a debug mesh, and the dry run
 # ---------------------------------------------------------------------------
 
-MESH_ARCHS = ('granite-moe-1b-a400m', 'gemma3-1b')
+MESH_ARCHS = ('granite-moe-1b-a400m', 'gemma3-1b', 'falcon-mamba-7b')
+# granite's capacity: 32 slots an expert for its 256 (token, choice) pairs
+# over 4 experts, so the expert-parallel MoE drops at least half of them
+MESH_OVER = {'granite-moe-1b-a400m': dict(capacity_factor=0.5)}
 MESH_B, MESH_S, MESH_STEPS = 4, 32, 3
 DRYRUN_TOL = 0.25        # the dry run's predicted peak vs the card's
 DRYRUN_CLI = ['--arch', 'gemma3-1b', '--shape', 'train_4k', '--mesh', 'both']
@@ -2996,10 +2999,12 @@ def stop_dryruns(procs):
 
 def mesh_rank(rank, tmp, dev_type):
     """One of 4 gloo ranks of the card: each MESH_ARCHS arch reduced on a
-    (2, 2) ('data', 'model') mesh, float32 state, weights drawn on the
-    CPU: MESH_STEPS sharded steps, each step's whole parameters and its
-    host time; then a checkpoint saved from a (4,) mesh and restored onto
-    (2, 2) with P('model', 'data')."""
+    (2, 2) ('data', 'model') mesh (MESH_OVER's changes to it), float32
+    state, weights drawn on the CPU: MESH_STEPS sharded steps, each step's
+    whole parameters and its host time, and the (token, choice) pairs
+    that the expert-parallel MoE kept of this rank's; then a checkpoint
+    saved from a (4,) mesh and restored onto (2, 2) with P('model',
+    'data')."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3011,12 +3016,21 @@ def mesh_rank(rank, tmp, dev_type):
     from repro_torch.models.transformer import init_params, tree_leaves
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.models import moe
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev_type, 0)
     mesh = make_auto_mesh((2, 2), ('data', 'model'), dev_type)
     out = dict(backend=dist.get_backend(), archs={})
+    on_mesh, kept = moe._moe_on_mesh, []
+
+    def spy(*a):    # the expert-parallel MoE's calls and kept pairs
+        y, probs, k = on_mesh(*a)
+        kept.append((int(k.to_local().sum()), k.to_local().numel()))
+        return y, probs, k
+    moe._moe_on_mesh = spy
     for arch in MESH_ARCHS:
-        cfg = get_config(arch).reduced()
+        cfg = get_config(arch).reduced(**MESH_OVER.get(arch, {}))
+        kept.clear()
         g = torch.Generator().manual_seed(200 + MESH_ARCHS.index(arch))
         params = init_params(cfg, g, 'cpu')
         batch = train_batch(cfg, MESH_B, MESH_S, g, 'cpu')
@@ -3044,10 +3058,12 @@ def mesh_rank(rank, tmp, dev_type):
             whole.append({k: v.full_tensor().cpu().numpy().copy()
                           for k, v in tree_leaves(p)})
         out['archs'][arch] = dict(
+            kept=[sum(k for k, _ in kept), sum(n for _, n in kept)],
             losses=losses, whole=whole if rank == 0 else None, times=times,
             loss0=loss0, grads0=grads0 if rank == 0 else None,
             local_device=str(next(iter(tree_leaves(p)))[1]
                              .to_local().device))
+    moe._moe_on_mesh = on_mesh
     tree = {'w': torch.arange(64, dtype=torch.float32,
                               device=dev).reshape(8, 8)}
     mesh1 = make_auto_mesh((4,), ('data',), dev_type)
@@ -3097,8 +3113,8 @@ def mesh_driver_rank(rank, root, dev_type):
 def mesh_steps(dev, tmp):
     """The sharded step on 4 gloo ranks of the card against the one-rank
     step on the card (1e-4 relative to each leaf's largest value after
-    each step, the loss falling), the reshard bitwise, and ms a step of
-    both."""
+    each step, the loss falling; the leaf that sets each step's largest
+    error named), the reshard bitwise, and ms a step of both."""
     from repro_torch.configs import get_config
     from repro_torch.launch.sharding import spawn_ranks
     from repro_torch.launch.steps import make_train_step
@@ -3115,7 +3131,7 @@ def mesh_steps(dev, tmp):
         return dict(error=str(e)[-3000:])
     r0 = ranks[0]
     for arch in MESH_ARCHS:
-        cfg = get_config(arch).reduced()
+        cfg = get_config(arch).reduced(**MESH_OVER.get(arch, {}))
         g = torch.Generator().manual_seed(200 + MESH_ARCHS.index(arch))
         params = _to(init_params(cfg, g, 'cpu'), dev)
         batch = {k: v.to(dev) for k, v in
@@ -3128,7 +3144,7 @@ def mesh_steps(dev, tmp):
                        + [float(np.abs(got['grads0'][k] - v.cpu().numpy())
                                 .max() / max(float(v.abs().max()), 1e-30))
                           for k, v in grads0.items()])
-        errs, times = [], []
+        errs, worst, times = [], [], []
         for i in range(MESH_STEPS):
             sync(dev)
             t0 = time.perf_counter()
@@ -3136,30 +3152,46 @@ def mesh_steps(dev, tmp):
             sync(dev)
             times.append(time.perf_counter() - t0)
             whole = got['whole'][i]
-            errs.append(max(
-                float(np.abs(whole[k] - v.cpu().numpy()).max()
-                      / max(float(v.abs().max()), 1e-30))
-                for k, v in tree_leaves(params)))
+            diff = {k: np.abs(whole[k] - v.cpu().numpy()) / max(
+                float(v.abs().max()), 1e-30) for k, v in tree_leaves(params)}
+            k = max(diff, key=lambda k: diff[k].max())
+            errs.append(float(diff[k].max()))
+            worst.append(k)
+            if i == 0:    # the first step's first moment is its gradient
+                j = np.unravel_index(diff[k].argmax(), diff[k].shape)
+                grad1 = [float(grads0[k].cpu().numpy()[j]),
+                         float(got['grads0'][k][j])]
         losses = [r['archs'][arch]['losses'] for r in ranks]
         falls = all(x[-1] < x[0] for x in losses)
         same = all(x == losses[0] for x in losses)
         sharded_ms = statistics.mean(
             r0['archs'][arch]['times'][1:]) * 1e3
         one_ms = statistics.mean(times[1:]) * 1e3
+        kept, pairs = got['kept']
+        ep = '' if cfg.family != 'moe' else (
+            f'; the expert-parallel MoE ran (all-to-alls over \'data\'), '
+            f'{pairs - kept} of {pairs} (token, choice) pairs of rank 0 '
+            f'dropped over its calls')
         check(errs[-1] <= LM_TOL and grad_err <= LM_TOL and falls
-              and same,
+              and same and (cfg.family != 'moe' or 0 < kept < pairs),
               f'mesh step {arch} (reduced, B={MESH_B} S={MESH_S}, float32 '
               f'state): 4 {r0["backend"]} ranks of one card on a (2, 2) '
               f'mesh (local tensors on {got["local_device"]}) vs the '
               f'one-rank step on the card: train_loss and '
               f'{len(grads0)} gradient leaves max rel err {grad_err:.3e}; '
               f'parameters after the {MESH_STEPS} steps {errs[-1]:.3e} '
-              f'(after each: {[f"{e:.3e}" for e in errs]}; bar '
-              f'{LM_TOL:.0e}); losses '
+              f'(after each: {[f"{e:.3e}" for e in errs]}, largest in '
+              f'{worst}; bar {LM_TOL:.0e}; the gradient at step 1\'s '
+              f'largest, one rank vs sharded: {grad1[0]:.4e} vs '
+              f'{grad1[1]:.4e}, AdamW\'s eps 1e-8); losses '
               f'{[round(x, 5) for x in losses[0]]} falling {falls}, the '
               f'same on every rank {same}; {sharded_ms:.1f} ms a sharded '
-              f'step vs {one_ms:.1f} ms one rank (steps 2-{MESH_STEPS})')
-        numbers[arch] = dict(max_rel_err=errs, grad_rel_err=grad_err,
+              f'step vs {one_ms:.1f} ms one rank (steps 2-{MESH_STEPS}; '
+              f'each sharded step '
+              f'{[round(t * 1e3, 1) for t in got["times"]]} ms){ep}')
+        numbers[arch] = dict(max_rel_err=errs, worst_leaf=worst,
+                             step1_grad=grad1, grad_rel_err=grad_err,
+                             kept_pairs=got['kept'],
                              losses=losses[0],
                              sharded_ms=sharded_ms, one_rank_ms=one_ms,
                              sharded_step_s=r0['archs'][arch]['times'])

@@ -56,9 +56,11 @@ def stage_gloo_collectives(key: str = 'CUDA'):
     card), torch 2.11's functional collectives crash the process (a
     segmentation fault in ``all_gather_tensor``), while the blocking
     collectives take the card's tensors and move them through host memory
-    inside gloo.  So these kernels replace the functional ones for
-    ``key``: each collective completes before it returns, and
-    ``wait_tensor`` is the identity.  The compute stays on the card."""
+    inside gloo (all but the all-to-all, which gloo takes on the host
+    only: it is staged through host memory here).  So these kernels
+    replace the functional ones for ``key``: each collective completes
+    before it returns, and ``wait_tensor`` is the identity.  The compute
+    stays on the card."""
     if key in _STAGED:
         return
     import torch
@@ -97,12 +99,14 @@ def stage_gloo_collectives(key: str = 'CUDA'):
         return reduce(out, op, g)
 
     def all_to_all_single(x, out_splits, in_splits, name):
+        # through host memory: gloo's all-to-all takes CPU tensors only
         n = sum(out_splits) if out_splits else x.shape[0]
-        out = x.new_empty((n,) + tuple(x.shape[1:]))
-        dist.all_to_all_single(out, x.contiguous(), list(out_splits) or None,
+        out = torch.empty((n,) + tuple(x.shape[1:]), dtype=x.dtype)
+        dist.all_to_all_single(out, x.cpu().contiguous(),
+                               list(out_splits) or None,
                                list(in_splits) or None,
                                group=_resolve_process_group(name))
-        return out
+        return out.to(x.device)
 
     def shard_dim_alltoall(x, gather_dim, shard_dim, name):
         g = _resolve_process_group(name)

@@ -29,6 +29,12 @@ ops that DTensor issues for rank 0 and counts, per device:
   bytes; ``output_size_in_bytes``: the outputs'; ``temp_size_in_bytes``:
   the peak minus the arguments).
 
+The production meshes are planned as a pod's, of device type ``cuda``
+(no card is needed; the local shards stay on ``meta``): DTensor then
+moves a tensor between two sharded layouts with an all-to-all, as on the
+pod, where on a ``cpu`` mesh it would gather the whole and keep its chunk
+(gloo has no all-to-all).
+
 Run it as its own process (a fake group is global to its process; only
 :func:`lower_cell` and :func:`main` create one, never an import):
 
@@ -50,6 +56,7 @@ from pathlib import Path
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCHS, get_config
@@ -116,9 +123,10 @@ class CostMode(TorchDispatchMode):
     local ops run inside it (see the module docstring).  An op on a
     DTensor is passed on (``NotImplemented``), so the mode sees the local
     ops and collectives that DTensor issues for this rank instead of the
-    global op.  Only ops whose outputs lie on ``device`` count: DTensor's
-    sharding propagation runs its own on fake tensors and small CPU index
-    tensors."""
+    global op.  Only ops whose outputs lie on ``device`` count, and no op
+    on fake tensors: DTensor's sharding propagation runs its own on fake
+    tensors of the global shape (on ``meta`` too, where the op names that
+    device) and on small CPU index tensors."""
 
     def __init__(self, device: str = 'meta'):
         super().__init__()
@@ -161,7 +169,7 @@ class CostMode(TorchDispatchMode):
         name = func._overloadpacket.__name__
         outs = _tensors(out)
         if name in _META or any(t.device.type != self.device
-                                for t in outs):
+                                or isinstance(t, FakeTensor) for t in outs):
             return out
         if func.namespace in _COLL_NAMESPACES:
             kind = next((k for key, k in _COLL_NAMES if key in name), None)
@@ -269,7 +277,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool):
                            '(see DESIGN.md long-context policy)')
     s = SHAPES[shape_name]
     fake_world(512 if multi_pod else 256)
-    mesh = make_production_mesh(multi_pod=multi_pod, device_type='cpu')
+    mesh = make_production_mesh(multi_pod=multi_pod, device_type='cuda')
     rec = dict(status='ok', arch=arch, shape=shape_name,
                mesh='2x16x16' if multi_pod else '16x16',
                n_devices=math.prod(axis_sizes(mesh).values()),

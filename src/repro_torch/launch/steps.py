@@ -12,7 +12,10 @@ under ``launch.compat.set_mesh``: it places a plain batch by
 ``batch_shardings``, and DTensor's sharding propagation partitions the
 computation, as XLA's partitioner does the reference's jitted step.
 ``act_spec`` (from :func:`act_partition_spec`) pins the residual stream
-between and inside the layer groups.
+between and inside the layer groups.  Every gradient is brought to its
+parameter's placements (:func:`placed_like`) as it comes out of the
+backward, so the float32 microbatch accumulators and AdamW's inputs are
+sharded as the parameters are.
 """
 
 from __future__ import annotations
@@ -114,6 +117,15 @@ def _split(v, n: int):
     return [v[i:i + b // n] for i in range(0, b, b // n)]
 
 
+def placed_like(g, p):
+    """The gradient ``g`` in its parameter ``p``'s placements (a DTensor;
+    anything else unchanged): a partial gradient is reduce-scattered onto
+    the parameter's shards, never gathered whole."""
+    if not is_dtensor(g) or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def make_train_step(cfg: ModelConfig, *, state_dtype='float32', lr=3e-4,
                     act_spec=None, microbatches: int = 1, device='cuda'):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
@@ -134,23 +146,28 @@ def make_train_step(cfg: ModelConfig, *, state_dtype='float32', lr=3e-4,
     def step(params, opt_state, batch):
         batch = _on(batch, dev)
         with mesh_context(params):
+            flat = dict(tree_leaves(params))
             if microbatches > 1:
                 parts = {k: _split(v, microbatches) for k, v in batch.items()}
                 loss = torch.zeros((), dtype=torch.float32, device=dev)
+                # the float32 accumulators take the parameters' placements
+                # (ZeRO: each rank sums its own shards)
                 grads = {path: torch.zeros_like(p, dtype=torch.float32)
-                         for path, p in tree_leaves(params)}
+                         for path, p in flat.items()}
                 for i in range(microbatches):
                     part_loss, part_grads = loss_and_grads(
                         params, {k: v[i] for k, v in parts.items()})
                     loss = loss + part_loss
-                    for path, g in part_grads.items():
-                        grads[path] += g.float()
-                    del part_grads
+                    for path in list(part_grads):
+                        grads[path] += placed_like(part_grads.pop(path),
+                                                   flat[path]).float()
                 loss = loss / microbatches
                 grads = {path: g / microbatches
                          for path, g in grads.items()}
             else:
                 loss, grads = loss_and_grads(params, batch)
+                grads = {path: placed_like(g, flat[path])
+                         for path, g in grads.items()}
             params, opt_state, metrics = adamw_update(
                 tree_from_paths(grads), opt_state, params, lr=lr,
                 state_dtype=state_dtype)

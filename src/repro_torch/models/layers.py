@@ -15,7 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .shard_utils import gather_rows, is_dtensor, matmul, pick_last
+from .shard_utils import (batch_layout, is_dtensor, matmul, model_dim,
+                          on_rows, pick_last, replicated_on, row_dims,
+                          rows_out, sum_over, vocab_logsumexp)
 
 
 @lru_cache(maxsize=64)
@@ -80,8 +82,43 @@ def embed(tokens, table):
     if is_dtensor(table):
         # DTensor has no rule for indexing a dim-sharded table with 2-D
         # ids (its vocab-parallel _MaskPartial raises IndexError)
-        return gather_rows(table, tokens)
+        return _embed_on_shards(tokens, table)
     return table[tokens]
+
+
+def _vocab_slice(table, rows):
+    """A DTensor table [V, d] as the plain rows of this rank's slice of
+    the vocabulary (split over 'model', unevenly where V does not divide;
+    whole over the other mesh dims), and the slice's first word.  Its
+    gradient is partial over ``rows``, the mesh dims whose ranks each use
+    it on their own batch rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    mi = model_dim(mesh)
+    tl = table.redistribute(mesh, [
+        Shard(0) if i == mi else Replicate() for i in range(mesh.ndim)
+    ]).to_local(grad_placements=[
+        Shard(0) if i == mi else Partial() if i in rows else Replicate()
+        for i in range(mesh.ndim)])
+    off = 0 if mi is None else (mesh.get_local_rank(mi) * -(
+        -table.shape[0] // mesh.size(mi)))
+    return tl, off
+
+
+def _embed_on_shards(tokens, table):
+    """``table[tokens]`` with each rank on its own batch rows and its own
+    slice of the vocabulary: the rows of the ids in the slice, zero for
+    the others, partial over 'model' (DTensor sums them where they are
+    used), as the reference's partitioner does for its ``embed`` spec."""
+    mesh = table.device_mesh
+    ids = batch_layout(tokens if is_dtensor(tokens)
+                       else replicated_on(mesh, tokens))
+    tl, off = _vocab_slice(table, row_dims(ids))
+    il = ids.to_local() - off
+    got = tl[il.clamp(0, max(tl.shape[0] - 1, 0))]
+    inside = ((il >= 0) & (il < tl.shape[0]))[..., None]
+    return rows_out(torch.where(inside, got, 0), mesh, ids.placements,
+                    model_dim(mesh), partial=True)
 
 
 def unembed(x, table, cap: float = 0.0):
@@ -110,8 +147,38 @@ def cross_entropy(logits, labels, mask=None):
     return nll.mean()
 
 
+def _nll_on_shards(h, table, labels, cap):
+    """Summed CE of the DTensor hidden states ``h`` [B, C, d], each rank
+    on its own rows and its own slice of the vocabulary (the reference's
+    layout for its ``embed`` spec): the table split over 'model' by rows
+    (unevenly where the vocabulary does not divide) and whole over the
+    data axes; the logits' logsumexp from a local max and sum each
+    all-reduced over 'model'; the label's logit picked on the rank that
+    holds it and summed over 'model'; the rows' sums summed over the data
+    axes.  The backward is local but for the sums DTensor makes of the
+    gradients: the rows' gradient partial over 'model', the table's over
+    the data axes.  No rank holds more than its rows' logits."""
+    h = batch_layout(h)
+    mesh = h.device_mesh
+    mi, rows = model_dim(mesh), row_dims(h)
+    tl, off = _vocab_slice(table, rows)
+    if is_dtensor(labels):
+        labels = labels.redistribute(mesh, h.placements).to_local()
+    logits = softcap(on_rows(h, mi) @ tl.to(h.dtype).T, cap).float()
+    vocab = [] if mi is None else [mi]
+    logz = vocab_logsumexp(logits, mesh, vocab)
+    il = labels.long() - off
+    n = logits.shape[-1]
+    got = torch.gather(logits, -1, il.clamp(0, max(n - 1, 0))[..., None])
+    picked = torch.where((il >= 0) & (il < n), got[..., 0], 0)
+    nll = (logz - sum_over(picked, mesh, vocab)).sum()
+    return replicated_on(mesh, sum_over(nll, mesh, rows))
+
+
 def _chunk_nll(h, table, labels, cap):
     """Summed CE of one sequence chunk: its logits exist only here."""
+    if is_dtensor(h) and is_dtensor(table):
+        return _nll_on_shards(h, table, labels, cap)
     return _nll(unembed(h, table, cap), labels).sum()
 
 
@@ -127,6 +194,8 @@ def chunked_lm_loss(hidden, table, labels, cap: float = 0.0,
     the reference."""
     B, S, _ = hidden.shape
     if S % n_chunks or S < n_chunks:
+        if is_dtensor(hidden) and is_dtensor(table):
+            return _nll_on_shards(hidden, table, labels, cap) / (B * S)
         return cross_entropy(unembed(hidden, table, cap), labels)
     C = S // n_chunks
     # no RNG runs here: preserve_rng_state would only stash it

@@ -15,11 +15,19 @@ them with atomics on the card.)  The expert segments come from
 ``searchsorted`` on the sorted ids, which, unlike ``bincount``, reads no
 size back to the host.
 
-Under a mesh the expert axis of ``w_in/w_gate/w_out`` shards over
-``model`` (expert parallelism), and ``_constrain`` pins the dispatch and
-expert buffers to experts over ``model``, capacity over ``data``, at the
-reference's three sites; the routing and the two gathers run on every
-rank over the whole token set.
+Under a mesh (:func:`_moe_on_mesh`) the experts shard over 'model' and
+each expert's capacity over the data axes, the reference's layout for its
+dispatch buffer (``_constrain(disp, 'model', 'data', None)``), and each
+rank routes its own tokens.  The tokens' global order makes the ranks'
+rows contiguous, so the per-expert counts of every data rank (an
+all-gather of ``[E]``) give each (token, choice) pair its rank within its
+expert in the reference's stable order, and the capacity drops are
+exactly the reference's.  The kept pairs travel to the rank that owns
+their expert and capacity slot and back with ``all_to_all_single`` over
+the data axes (XLA's all-to-alls at the dispatch and combine boundaries);
+the tokens of a data rank are on every 'model' rank already, so the
+dispatch needs no exchange over 'model': each rank takes its own experts'
+pairs, and the combine's sum over the experts is partial over 'model'.
 """
 
 from __future__ import annotations
@@ -27,8 +35,10 @@ from __future__ import annotations
 import torch
 
 from .layers import activation
-from .shard_utils import (batch_layout, constrain, is_dtensor, matmul,
-                          replicated_on, whole)
+from .shard_utils import (all_gather, batch_layout, constrain,
+                          exchange, flat_rank, grad_on_first, is_dtensor, local_part,
+                          matmul, model_dim, on_rows, replicated_on,
+                          row_dims, rows_out, whole)
 
 
 def _constrain(x, *axes):
@@ -71,22 +81,25 @@ def moe_ffn(x, router_w, w_in, w_gate, w_out, *, top_k, capacity_factor):
     B, S, d = x.shape
     E = router_w.shape[-1]
     T = B * S
+    C = max(8, min(int(capacity_factor * T * top_k / E), T))
+    if is_dtensor(x) and _expert_parallel(batch_layout(x), w_in, C):
+        return _moe_on_mesh(batch_layout(x), router_w, w_in, w_gate, w_out,
+                            top_k, C)[:2]
     xt = x.reshape(T, d)
     gates = matmul(xt.float(), router_w.float())
     mesh = xt.device_mesh if is_dtensor(xt) else None
     if mesh is not None:
-        # the routing, dispatch and combine index the whole token set
-        # (argsort, searchsorted, scatter_ and these gathers have no
-        # DTensor rule that keeps the tokens split): on a mesh every rank
-        # runs them on the whole tokens and expert outputs, as plain
+        # the experts do not split over 'model', or an expert's capacity
+        # not over the data axes (decode: the reference keeps such a
+        # buffer whole too, and its few tokens cost less than moving the
+        # expert weights): argsort, searchsorted, scatter_ and the
+        # dispatch gathers have no DTensor rule that keeps the tokens
+        # split, so every rank routes the whole token set, as plain
         # tensors; the expert FFNs stay sharded
         xt, gates = whole(xt), whole(gates)
     probs = torch.softmax(gates, dim=-1)                       # [T, E]
     top_p, top_e = torch.topk(probs, top_k, dim=-1, sorted=True)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    C = int(capacity_factor * T * top_k / E)
-    C = max(8, min(C, T))
 
     # --- dispatch: replicate k ways, sort by expert, rank within expert ---
     order, tok, keep, slot, filled, inv = _route(top_e, E, C)
@@ -116,6 +129,105 @@ def moe_ffn(x, router_w, w_in, w_gate, w_out, *, top_k, capacity_factor):
     if mesh is not None:    # each rank keeps its own tokens
         y, probs = (batch_layout(replicated_on(mesh, t)) for t in (y, probs))
     return y.reshape(B, S, d), probs
+
+
+def _expert_parallel(x, w_in, C: int) -> bool:
+    """Whether :func:`_moe_on_mesh` runs ``x`` (batch layout): the mesh
+    has a 'model' dim that splits the experts of ``w_in`` evenly, and an
+    expert's capacity ``C`` splits evenly over the data dims that split
+    the rows."""
+    mesh = x.device_mesh
+    mi = model_dim(mesh)
+    n = 1
+    for i in row_dims(x):
+        n *= mesh.size(i)
+    return (mi is not None and is_dtensor(w_in)
+            and w_in.shape[0] % mesh.size(mi) == 0 and C % n == 0)
+
+
+def _moe_on_mesh(x, router_w, w_in, w_gate, w_out, top_k, C):
+    """``moe_ffn`` of the batch-layout DTensor ``x`` with experts over
+    'model' and each expert's C slots over the data dims that split the
+    rows (see the module docstring).  Returns ([B, S, d], probs [T, E],
+    kept [T, k]), DTensors of each rank's rows."""
+    B, S, d = x.shape
+    E = router_w.shape[-1]
+    mesh = x.device_mesh
+    mi, rows = model_dim(mesh), row_dims(x)
+    m, r = mesh.size(mi), mesh.get_local_rank(mi)
+    n, g = 1, flat_rank(mesh, rows)
+    for i in rows:
+        n *= mesh.size(i)
+    Em, Cn = E // m, C // n
+    e0 = r * Em
+    xt = on_rows(x, mi)
+    T_l = xt.shape[0] * S
+    xt = xt.reshape(T_l, d)
+    dev = xt.device
+
+    # --- route this rank's tokens (every 'model' rank alike) ---
+    probs = torch.softmax(
+        xt.float() @ local_part(router_w, rows, mi).float(), dim=-1)
+    top_p, top_e = torch.topk(probs, top_k, dim=-1, sorted=True)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    n_pairs = T_l * top_k
+    order = torch.argsort(top_e.reshape(-1), stable=True)
+    se = top_e.reshape(-1)[order]
+    st = order // top_k
+    sp = top_p.reshape(-1)[order]
+    experts = torch.arange(E, device=dev)
+    seg = torch.searchsorted(se, experts)                      # [E]
+    counts = torch.searchsorted(se, experts, right=True) - seg
+    # every data rank's counts: a pair's rank in its expert, globally
+    every = all_gather(counts, mesh, rows).reshape(n, E)
+    ends = torch.cumsum(every, 0)                              # [n, E]
+    base = ends[g] - counts
+    grank = base[se] + torch.arange(n_pairs, device=dev) - seg[se]
+    keep = grank < C
+
+    # --- dispatch: this rank's pairs of its experts, at their global
+    # slots [Em, C]; slot block j goes to data rank j ---
+    mine = slice(e0, e0 + Em)
+    slot = torch.arange(C, device=dev)
+    lr = slot - base[mine, None]                               # [Em, C]
+    here = (lr >= 0) & (lr < counts[mine, None])
+    src = (seg[mine, None] + lr).clamp(0, n_pairs - 1)
+    send = torch.where(here[..., None], xt[st[src]], 0)        # [Em, C, d]
+    got = exchange(send.reshape(Em, n, Cn, d).transpose(0, 1), mesh, rows)
+    disp = got.sum(0)    # [Em, Cn, d]: one data rank fills each slot
+
+    # --- expert FFN on this rank's experts and slots ---
+    def part(w):
+        return local_part(w, rows, mi, 0, [(e0, e0 + Em)]).to(x.dtype)
+    h = torch.bmm(disp, part(w_in))
+    gt = None if w_gate is None else torch.bmm(disp, part(w_gate))
+    out_e = torch.bmm(activation(h, gt), part(w_out))          # [Em, Cn, d]
+
+    # --- back to the data ranks whose pairs filled the slots ---
+    gslot = g * Cn + torch.arange(Cn, device=dev)
+    owner = torch.searchsorted(ends[:, mine].T.contiguous(),
+                               gslot.expand(Em, Cn).contiguous(),
+                               right=True)                     # [Em, Cn]
+    to = torch.arange(n, device=dev)[:, None, None] == owner
+    back = exchange(torch.where(to[..., None], out_e, 0), mesh, rows)
+    flat_out = back.transpose(0, 1).reshape(Em, C, d)
+
+    # --- combine: this rank's experts' part of each token's sum ---
+    ours = keep & (se >= e0) & (se < e0 + Em)
+    gathered = torch.where(ours[:, None], flat_out[
+        (se - e0).clamp(0, Em - 1), grank.clamp(0, C - 1)], 0)
+    contrib = gathered.float() * sp[:, None] * ours[:, None]
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n_pairs, device=dev))
+    y = contrib[inv].reshape(T_l, top_k, d).sum(1)
+    y = rows_out(y.reshape(-1, S, d), mesh, x.placements, mi, partial=True)
+    y = y.redistribute(mesh, x.placements).to(x.dtype)
+    # the probabilities are alike on every 'model' rank, and the router's
+    # gradients are summed over 'model': one rank hands theirs on
+    probs = rows_out(grad_on_first(probs, mesh, [mi]), mesh,
+                     x.placements, mi)
+    kept = rows_out(keep[inv].reshape(T_l, top_k), mesh, x.placements, mi)
+    return y, probs, kept
 
 
 def load_balance_loss(probs, top_e, n_experts):

@@ -91,14 +91,19 @@ def _chunks(arr, S, C):
 # Mamba-1 (falcon-mamba): per-channel diagonal A [d_inner, N]
 # ---------------------------------------------------------------------------
 
-def mamba1_forward(x, p, cfg, state: MambaState | None = None, chunk=64):
+def mamba1_forward(x, p, cfg, state: MambaState | None = None, chunk=64,
+                   reduce=None):
     """x: [B, S, d_model].  p: parameter dict.  Returns (y, new_state).
 
     The [B, S, d_inner, N] state-update tensors are formed one chunk at a
-    time, never for the whole sequence.
+    time, never for the whole sequence.  ``reduce``: None, or the sum over
+    the ranks that each hold a share of the channels (``p`` and ``state``
+    then hold this rank's share, :func:`channel_layout`): it completes
+    ``x_proj``'s contraction over the channels, and the output is this
+    rank's part of ``out_proj``'s sum.
     """
     B, S, _ = x.shape
-    d_in = cfg.d_inner
+    d_in = p['conv_w'].shape[-1]     # this rank's channels
     N = cfg.ssm_state
     xz = matmul(x, p['in_proj'].to(x.dtype))
     xs, z = xz[..., :d_in], xz[..., d_in:]
@@ -107,6 +112,8 @@ def mamba1_forward(x, p, cfg, state: MambaState | None = None, chunk=64):
     xs = F.silu(xs.float()).to(x.dtype)
 
     proj = matmul(xs, p['x_proj'].to(x.dtype))
+    if reduce is not None:
+        proj = reduce(proj)
     r = cfg.dt_rank
     dt, Bc, Cc = proj[..., :r], proj[..., r:r + N], proj[..., r + N:]
     dt = matmul(dt, p['dt_proj'].to(x.dtype))
@@ -147,15 +154,18 @@ def mamba1_forward(x, p, cfg, state: MambaState | None = None, chunk=64):
 # Mamba-2 (zamba2): scalar A per head, state [H, N, P]
 # ---------------------------------------------------------------------------
 
-def mamba2_forward(x, p, cfg, state: MambaState | None = None, chunk=64):
+def mamba2_forward(x, p, cfg, state: MambaState | None = None, chunk=64,
+                   reduce=None):
     """Mamba-2 via the SSD chunked-matmul algorithm: within a chunk the
     scalar-per-head decay makes the solution a decay-masked attention
-    product, so the [B, S, H, N, P] state tensor is never formed."""
+    product, so the [B, S, H, N, P] state tensor is never formed.
+    ``reduce``: as in :func:`mamba1_forward` (a rank's share is its heads;
+    ``reduce`` completes the gated norm's sum of squares)."""
     B, S, _ = x.shape
-    d_in = cfg.d_inner
     N = cfg.ssm_state
     P = cfg.ssm_head_p
-    H = cfg.ssm_heads
+    H = p['A_log'].shape[0]          # this rank's heads
+    d_in = H * P
     zxbcdt = matmul(x, p['in_proj'].to(x.dtype))
     z, xs, Bc, Cc, dt = torch.tensor_split(
         zxbcdt, [d_in, 2 * d_in, 2 * d_in + N, 2 * d_in + 2 * N], dim=-1)
@@ -213,11 +223,52 @@ def mamba2_forward(x, p, cfg, state: MambaState | None = None, chunk=64):
     y = y.to(x.dtype)
     # grouped RMSNorm before out_proj (mamba2 convention)
     yf = y.float()
-    var = yf.square().mean(-1, keepdim=True)
+    if reduce is None:
+        var = yf.square().mean(-1, keepdim=True)
+    else:
+        var = reduce(yf.square().sum(-1, keepdim=True)) / cfg.d_inner
     y = (yf * torch.rsqrt(var + 1e-6)
          * (1 + p['norm_w'].float())).to(x.dtype)
     out = matmul(y, p['out_proj'].to(x.dtype))
     return out, MambaState(conv=conv_state, h=h_last.float())
+
+
+def channel_layout(cfg, kind: str, r: int, m: int):
+    """Rank ``r`` of ``m``'s share of a mamba block's channels (Mamba-2:
+    its heads), as ``(params, state)``: ``{name: (dim, ranges)}`` with the
+    (start, stop) ranges of each parameter along ``dim`` that the rank
+    uses, in the order of the whole, and ``{leaf: (dim, ranges)}`` for the
+    recurrent state.  ``in_proj`` interleaves its outputs (Mamba-1: x, z;
+    Mamba-2: z, x, B, C, dt), so a rank's columns are one range of each
+    per-channel part, and Mamba-2's B and C (shared by every head) go to
+    every rank whole, in ``in_proj``, ``conv_w`` and the conv state."""
+    d_in, N = cfg.d_inner, cfg.ssm_state
+    if kind == 'mamba1':
+        c = d_in // m
+        own = [(r * c, (r + 1) * c)]
+        params = dict(in_proj=(1, own + [(d_in + r * c, d_in + (r + 1) * c)]),
+                      conv_w=(1, own), x_proj=(0, own), dt_proj=(1, own),
+                      dt_bias=(0, own), A_log=(0, own), D=(0, own),
+                      out_proj=(0, own))
+        return params, dict(conv=(2, own), h=(1, own))
+    hr = cfg.ssm_heads // m
+    c = hr * cfg.ssm_head_p
+    own, heads = [(r * c, (r + 1) * c)], [(r * hr, (r + 1) * hr)]
+    bc = [(d_in, d_in + 2 * N)]
+    dt = 2 * d_in + 2 * N
+    params = dict(in_proj=(1, own + [(d_in + r * c, d_in + (r + 1) * c),
+                                     (2 * d_in, dt),
+                                     (dt + r * hr, dt + (r + 1) * hr)]),
+                  conv_w=(1, own + bc), dt_bias=(0, heads),
+                  A_log=(0, heads), D=(0, heads), norm_w=(0, own),
+                  out_proj=(0, own))
+    return params, dict(conv=(2, own + bc), h=(1, heads))
+
+
+def splits_channels(cfg, kind: str, m: int) -> bool:
+    """Whether ``m`` ranks can each take an equal share of the block's
+    channels (Mamba-2: of its heads)."""
+    return (cfg.d_inner if kind == 'mamba1' else cfg.ssm_heads) % m == 0
 
 
 def mamba_param_shapes(cfg, kind: str):

@@ -44,10 +44,10 @@ from .layers import (chunked_lm_loss, embed, mlp, rms_norm, rope, rounded,
                      unembed)
 from .moe import moe_ffn
 from .shard_utils import (batch_layout, is_dtensor, matmul, mesh_context,
-                          on_batch_rows, pin, reshard, unflatten_last,
-                          whole_dims)
-from .ssm import (MambaState, mamba1_forward, mamba2_forward,
-                  mamba_param_shapes)
+                          model_dim, on_batch_rows, on_channel_shards, pin,
+                          reshard, unflatten_last, whole_dims)
+from .ssm import (MambaState, channel_layout, mamba1_forward,
+                  mamba2_forward, mamba_param_shapes, splits_channels)
 
 # ---------------------------------------------------------------------------
 # parameter construction
@@ -337,7 +337,17 @@ def apply_block(cfg: ModelConfig, p, tag: str, x, positions,
         h = rms_norm(x, p['ln1'], cfg.norm_eps)
         fwd = mamba1_forward if tag == 'mamba1' else mamba2_forward
         state = None if cache is None else MambaState(**cache)
-        if is_dtensor(h):   # the scans reshape S, which DTensor refuses
+        mi = model_dim(h.device_mesh) if is_dtensor(h) else None
+        if mi is not None and splits_channels(cfg, tag,
+                                              h.device_mesh.size(mi)):
+            # the scans reshape S, which DTensor refuses: each rank runs
+            # them on its own rows and channels, as plain tensors
+            y, new_state = on_channel_shards(
+                lambda hl, pl, st, red: fwd(hl, pl, cfg, st, reduce=red),
+                h, p, state, lambda r, m: channel_layout(cfg, tag, r, m))
+        elif is_dtensor(h):
+            # channels that do not split over 'model' (or no 'model'
+            # axis): the whole mixer on each rank's rows
             y, new_state = on_batch_rows(
                 lambda hl, pl, st: fwd(hl, pl, cfg, st), h, p, state)
         else:

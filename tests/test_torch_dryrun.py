@@ -1,11 +1,16 @@
 """The port's dry run (``python -m repro_torch.launch.dryrun``): per-device
 FLOP and collective bytes exact on unit cases, a full-width decode cell
 ``ok`` with exact argument bytes and no real allocation, the reference's
-skip of ``long_500k`` for a full-attention arch, and a reduced train
-cell through the lower-level helper on a (2, 2) mesh.
+skip of ``long_500k`` for a full-attention arch, a reduced train cell
+through the lower-level helper on a (2, 2) mesh, and three train cells at
+full width, their depth cut, against the reference's own dry run of the
+same cut configs (per-device peak at most twice the reference's).
 
-Everything runs in one subprocess: a fake process group is global to its
-process (the dry run makes this process rank 0 of 256 ranks, then of 4).
+The port's checks run in one subprocess: a fake process group is global
+to its process (the dry run makes this process rank 0 of 256 ranks, then
+of 4, then of 256 again).  The reference's dry run runs beside it in a
+second one (it forces 512 host devices before jax starts); each replaces
+its dry run's ``get_config`` in that process only.
 """
 import json
 import os
@@ -73,6 +78,17 @@ cfg = get_config('granite-moe-1b-a400m').reduced(
     d_model=64, vocab=512, n_heads=4, n_kv=2)
 out['train'] = dryrun.lower(cfg, small, 'train', 32, 8)
 out['maxrss_gb'] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+import dataclasses
+whole_config = dryrun.get_config
+dryrun.get_config = lambda a: dataclasses.replace(whole_config(a),
+                                                  n_layers=CUT[a])
+out['cut'] = {}
+for arch in CUT:
+    rec = dryrun.lower_cell(arch, 'train_4k', multi_pod=False)
+    out['cut'][arch] = dict(
+        peak=rec['memory']['peak_size_in_bytes'],
+        all_to_all=rec['collectives']['all-to-all']['count'])
 import sys
 out['forbidden'] = sorted(m for m in sys.modules if m.split('.')[0] in
                           ('jax', 'jaxlib', 'repro', 'benchmarks'))
@@ -80,14 +96,57 @@ print('RESULT ' + json.dumps(out))
 '''
 
 
-@pytest.fixture(scope='module')
-def result():
-    env = dict(os.environ, PYTHONPATH=str(REPO / 'src'))
-    p = subprocess.run([sys.executable, '-c', CHECKS], capture_output=True,
-                       text=True, env=env, timeout=600)
-    assert p.returncode == 0, p.stderr[-4000:]
-    line = next(x for x in p.stdout.splitlines() if x.startswith('RESULT '))
+# train_4k cells at full width on 16 x 16, depth cut to a multiple of the
+# pattern's period, for the port's dry run and the reference's
+CUT = {'arctic-480b': 2, 'falcon-mamba-7b': 2, 'gemma3-1b': 6}
+
+# the reference's own dry run of the same cut cells, in its own process
+# (it forces 512 host devices before jax starts): its per-device peak,
+# argument + output + temp - alias bytes of the compiled step.  XLA's
+# LLVM codegen runs at its least effort: the memory analysis is made
+# before codegen (the same bytes), at half the CPU time
+REFERENCE = r'''
+import dataclasses, json, os
+import repro.launch.dryrun as d
+os.environ['XLA_FLAGS'] += (' --xla_backend_optimization_level=0'
+                            ' --xla_llvm_disable_expensive_passes=true')
+whole_config = d.get_config
+d.get_config = lambda a: dataclasses.replace(whole_config(a), n_layers=CUT[a])
+out = {}
+for arch in CUT:
+    m = d.lower_cell(arch, 'train_4k', False)['memory']
+    out[arch] = (m['argument_size_in_bytes'] + m['output_size_in_bytes']
+                 + m['temp_size_in_bytes'] - m['alias_size_in_bytes'])
+print('RESULT ' + json.dumps(out))
+'''
+
+
+def _run(code, env):
+    return subprocess.Popen([sys.executable, '-c', code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _result(p):
+    stdout, stderr = p.communicate(timeout=600)
+    assert p.returncode == 0, stderr[-4000:]
+    line = next(x for x in stdout.splitlines() if x.startswith('RESULT '))
     return json.loads(line[len('RESULT '):])
+
+
+@pytest.fixture(scope='module')
+def runs():
+    """The port's checks and the reference's cut cells, run at once."""
+    cut = f'CUT = {CUT!r}\n'
+    port = _run(cut + CHECKS, dict(os.environ, PYTHONPATH=str(REPO / 'src')))
+    ref = _run(cut + REFERENCE, dict(os.environ, JAX_PLATFORMS='cpu',
+                                      PYTHONPATH=str(REPO / 'src')))
+    return _result(port), _result(ref)
+
+
+@pytest.fixture(scope='module')
+def result(runs):
+    return runs[0]
 
 
 def test_sharded_matmul_flops_per_device(result):
@@ -147,3 +206,15 @@ def test_dry_run_imports_no_jax(result):
     """The dry run's process (the mesh, specs, shardings and steps all
     imported and run) holds no jax or repro module."""
     assert result['forbidden'] == []
+
+
+@pytest.mark.parametrize('arch', sorted(CUT))
+def test_cut_train_peak_within_twice_reference(runs, arch):
+    """train_4k at full width on 16 x 16, depth cut to ``CUT``: the port's
+    per-device peak at most twice the reference's dry run of the same cut
+    config (the port runs eagerly and fuses nothing, so it may hold more
+    transients than XLA); arctic's expert-parallel MoE runs all-to-alls."""
+    port, ref = runs[0]['cut'][arch], runs[1][arch]
+    assert port['peak'] <= 2 * ref, (port['peak'] / 1e9, ref / 1e9)
+    if arch == 'arctic-480b':
+        assert port['all_to_all'] > 0

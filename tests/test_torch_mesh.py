@@ -197,12 +197,171 @@ def _decode(rank, mesh):
                             if pl.is_shard()])
 
 
+MOE = dict(B=8, S=16, d=16, E=4, ff=24, top_k=2, capacity_factor=0.5)
+# a constant input feature whose router row favours experts 1 and 3 over 0
+# and 2: data rank 0 (the first 64 tokens) overfills experts 1 and 3 (its
+# own pairs dropped, all of rank 1's), leaves expert 0 part full (rank 1's
+# pairs kept in the slots of data rank 1) and expert 2 under half full
+# (rank 1's pairs kept in both data ranks' slots)
+MOE_BIAS = (-1.0, 0.0, -3.0, 0.0)
+
+
+def _moe_inputs():
+    """x, router, e_in, e_gate, e_out of the expert-parallel case, float32
+    numpy arrays drawn from a seed (the parent draws the same); x's first
+    feature is 1 and the router's first row ``MOE_BIAS``."""
+    rng = np.random.default_rng(7)
+    c = MOE
+    shapes = ((c['B'], c['S'], c['d']), (c['d'], c['E']),
+              (c['E'], c['d'], c['ff']), (c['E'], c['d'], c['ff']),
+              (c['E'], c['ff'], c['d']))
+    x, router, *experts = [(rng.standard_normal(s) * (1.0 if i < 2 else 0.2))
+                           .astype(np.float32) for i, s in enumerate(shapes)]
+    x[..., 0] = 1.0
+    router[0] = MOE_BIAS
+    return [x, router, *experts]
+
+
+def _moe(rank, mesh):
+    """``moe_ffn`` on the mesh: x's rows over 'data', the expert weights
+    placed as ``param_shardings`` places a block's, a capacity that drops
+    pairs; its output, probabilities and the kept (token, choice) pairs
+    (from ``_moe_on_mesh``, whose call says it ran the expert-parallel
+    path) whole, this rank's data rank, and the rows of each exchange
+    that are not zero, by the data rank they are sent to."""
+    from repro_torch.launch.compat import set_mesh
+    from repro_torch.launch.sharding import (NamedSharding, P,
+                                             param_shardings, place)
+    from repro_torch.models import moe, shard_utils
+    x, router, e_in, e_gate, e_out = (torch.as_tensor(a)
+                                      for a in _moe_inputs())
+    w = {'router': router, 'e_in': e_in, 'e_gate': e_gate, 'e_out': e_out}
+    w = place(w, param_shardings(w, mesh))
+    xd = place(x, NamedSharding(mesh, P('data', None, None)))
+    sent, kept = [], []
+    a2a, on_mesh = shard_utils._all_to_all, moe._moe_on_mesh
+
+    def count(t, *a):
+        sent.append((t != 0).any(-1).reshape(t.shape[0], -1).sum(1).tolist())
+        return a2a(t, *a)
+
+    def spy(*a):
+        out = on_mesh(*a)
+        kept.append(out[2])
+        return out
+    shard_utils._all_to_all, moe._moe_on_mesh = count, spy
+    try:
+        with set_mesh(mesh):
+            y, probs = moe.moe_ffn(
+                xd, w['router'], w['e_in'], w['e_gate'], w['e_out'],
+                top_k=MOE['top_k'], capacity_factor=MOE['capacity_factor'])
+    finally:
+        shard_utils._all_to_all, moe._moe_on_mesh = a2a, on_mesh
+    return dict(y=y.full_tensor().numpy(), probs=probs.full_tensor().numpy(),
+                kept=[k.full_tensor().numpy() for k in kept], sent=sent,
+                data_rank=mesh.get_local_rank(0),
+                local_rows=tuple(y.to_local().shape))
+
+
+def _mixers(rank, mesh):
+    """falcon-mamba-7b and zamba2-7b reduced (their channels split over the
+    2 'model' ranks) and gemma3-1b reduced (503 words: an uneven vocabulary
+    split): ``train_loss`` and every gradient on the mesh against the same
+    on one rank; for the two SSM archs also the prefill logits and cache
+    and one decode step from that cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.compat import set_mesh
+    from repro_torch.launch.sharding import (batch_shardings,
+                                             param_shardings, place)
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill, train_loss,
+                                                tree_leaves, value_and_grad)
+    out = {}
+    for arch in ('falcon-mamba-7b', 'zamba2-7b', 'gemma3-1b'):
+        cfg = get_config(arch).reduced()
+        params = init_params(cfg, torch.Generator().manual_seed(11), 'cpu')
+        batch = _tokens(cfg, seed=4)
+        p = place(params, param_shardings(params, mesh))
+        loss1, g1 = value_and_grad(lambda q: train_loss(cfg, q, batch),
+                                   params)
+        with set_mesh(mesh):
+            b = place(batch, batch_shardings(batch, mesh))
+            loss2, g2 = value_and_grad(lambda q: train_loss(cfg, q, b), p)
+        got = dict(loss=abs(float(loss2.full_tensor()) - float(loss1))
+                   / abs(float(loss1)),
+                   grads=max(_rel(g2[k].full_tensor(), v)
+                             for k, v in g1.items()))
+        if cfg.family in ('ssm', 'hybrid'):
+            tok = batch['tokens'][:, :16]
+            want, cache = prefill(cfg, params, tok)
+            with set_mesh(mesh):
+                t = place({'t': tok}, batch_shardings({'t': tok}, mesh))['t']
+                have, c = prefill(cfg, p, t)
+            nxt = torch.argmax(want, -1)
+            want2, cache = decode_step(cfg, params, cache, nxt, 16)
+            with set_mesh(mesh):
+                t = place({'t': nxt}, batch_shardings({'t': nxt}, mesh))['t']
+                have2, c = decode_step(cfg, p, c, t, 16)
+            whole = dict(tree_leaves(c))
+            got.update(prefill=_rel(have.full_tensor(), want),
+                       decode=_rel(have2.full_tensor(), want2),
+                       cache=max(_rel(whole[k].full_tensor(), v)
+                                 for k, v in tree_leaves(cache)
+                                 if v.abs().max() > 0))
+        out[arch] = got
+    return out
+
+
+def _microbatched(rank, mesh):
+    """One step of granite-moe (``SMALL``) with ``microbatches=2`` on the
+    mesh and on one rank: the parameters after it, and, for every
+    gradient that reaches AdamW (the float32 accumulator divided by the
+    microbatches), whether its placements and dtype are its parameter's
+    and float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.compat import set_mesh
+    from repro_torch.launch.sharding import (opt_shardings, param_shardings,
+                                             place)
+    from repro_torch.models.transformer import (init_params, tree_leaves,
+                                                tree_map)
+    from repro_torch.optim.adamw import adamw_init
+    cfg = get_config(ARCH).reduced(**SMALL)
+    params = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    ref_p = tree_map(torch.clone, params)
+    ref_o = adamw_init(ref_p)
+    opt = adamw_init(params)
+    pshard = param_shardings(params, mesh)
+    p, o = place(params, pshard), place(opt, opt_shardings(opt, pshard,
+                                                           mesh))
+    step = steps.make_train_step(cfg, microbatches=2, device='cpu')
+    seen, update = {}, steps.adamw_update
+
+    def spy(grads, state, params, **kw):
+        for (k, g), (_, q) in zip(tree_leaves(grads), tree_leaves(params)):
+            seen[k] = (str(g.placements), str(q.placements),
+                       g.dtype == torch.float32)
+        return update(grads, state, params, **kw)
+    steps.adamw_update = spy
+    try:
+        with set_mesh(mesh):
+            p, o, m = step(p, o, _tokens(cfg))
+    finally:
+        steps.adamw_update = update
+    ref_p, ref_o, _ = step(ref_p, ref_o, _tokens(cfg))
+    whole = {k: v.full_tensor() for k, v in tree_leaves(p)}
+    return dict(seen=seen, err=max(_rel(whole[k], v)
+                                   for k, v in tree_leaves(ref_p)))
+
+
 def _rank_work(rank, ckpt_dir):
     torch.set_num_threads(1)
     from repro_torch.launch.compat import make_auto_mesh
     mesh = make_auto_mesh((2, 2), ('data', 'model'), 'cpu')
     return dict(steps=_steps(rank, mesh), reshard=_reshard(rank, ckpt_dir),
-                compressed=_compressed(rank), decode=_decode(rank, mesh))
+                compressed=_compressed(rank), decode=_decode(rank, mesh),
+                moe=_moe(rank, mesh), mixers=_mixers(rank, mesh),
+                micro=_microbatched(rank, mesh))
 
 
 @pytest.fixture(scope='module')
@@ -277,6 +436,83 @@ def test_sharded_decode_matches_unsharded(ranks):
         got = r['decode']
         assert max(got['errs']) <= TOL and got['cache_err'] <= TOL, got
         assert 2 in got['split_dims'], got['split_dims']   # the sequence
+
+
+def test_expert_parallel_moe_matches_reference(ranks):
+    """The expert-parallel ``moe_ffn`` on the (2, 2) mesh (each rank
+    routes its own rows; the kept pairs exchanged with all-to-alls) against
+    ``repro.models.moe.moe_ffn`` on the same inputs, with a capacity that
+    drops pairs of both data ranks and keeps pairs of both: output and
+    probabilities within 1e-5 relative, the dropped pairs the same as the
+    reference's (its own routing lines on its probabilities: a stable sort
+    by expert, each pair's rank in its expert below the capacity), and
+    data rank 1's pairs carried to the slots of both data ranks and back."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.moe import moe_ffn
+    c = MOE
+    args = [jnp.asarray(a) for a in _moe_inputs()]
+    y, probs = jax.jit(lambda *a: moe_ffn(
+        *a, top_k=c['top_k'], capacity_factor=c['capacity_factor']))(*args)
+    T = c['B'] * c['S']
+    C = max(8, min(int(c['capacity_factor'] * T * c['top_k'] / c['E']), T))
+    flat = np.asarray(jax.lax.top_k(probs, c['top_k'])[1]).reshape(-1)
+    order = np.argsort(flat, kind='stable')
+    counts = np.bincount(flat, minlength=c['E'])
+    rank_in = np.arange(flat.size) - (np.cumsum(counts) - counts)[
+        flat[order]]
+    kept = np.empty(flat.size, bool)
+    kept[order] = rank_in < C
+    kept = kept.reshape(T, c['top_k'])
+    assert (~kept[:T // 2]).any() and kept[T // 2:].any()
+    assert (~kept[T // 2:]).any() and kept[:T // 2].any()
+    for r in ranks[0]:
+        got = r['moe']
+        assert len(got['kept']) == 1 and len(got['sent']) == 2
+        assert got['local_rows'] == (c['B'] // 2, c['S'], c['d'])
+        assert _rel(torch.as_tensor(got['y']),
+                    torch.as_tensor(np.array(y))) <= TOL
+        assert _rel(torch.as_tensor(got['probs']),
+                    torch.as_tensor(np.array(probs))) <= TOL
+        assert np.array_equal(got['kept'][0], kept)
+    # dispatch: data rank 1's pairs sent to the slots of data ranks 0 and 1;
+    # return: data rank 0 sends rank 1's results back
+    by = {d: [r['moe']['sent'] for r in ranks[0]
+              if r['moe']['data_rank'] == d] for d in (0, 1)}
+    assert all(sum(s[0][j] for s in by[1]) > 0 for j in (0, 1)), by
+    assert sum(s[1][1] for s in by[0]) > 0, by
+
+
+def test_channel_sharded_mixers_match_one_rank(ranks):
+    """falcon-mamba-7b and zamba2-7b reduced, each rank on its own rows and
+    its half of the SSM channels (Mamba-2: heads): the loss and every
+    gradient, the prefill logits and caches, and a decode step from them
+    within 1e-5 of one rank."""
+    for r in ranks[0]:
+        for arch in ('falcon-mamba-7b', 'zamba2-7b'):
+            got = r['mixers'][arch]
+            assert max(got.values()) <= TOL, (arch, got)
+
+
+def test_sharded_loss_matches_one_rank(ranks):
+    """gemma3-1b reduced (its 503-word table split 252 / 251 over 'model'):
+    the loss, each rank on its own rows and vocabulary slice, and every
+    gradient within 1e-5 of one rank."""
+    for r in ranks[0]:
+        got = r['mixers']['gemma3-1b']
+        assert got['loss'] <= TOL and got['grads'] <= TOL, got
+
+
+def test_microbatched_step_keeps_parameter_placements(ranks):
+    """A ``microbatches=2`` step on the mesh: every gradient reaching AdamW
+    (its float32 accumulator over the parts) has its parameter's
+    placements, so no gradient is whole where its parameter is sharded;
+    the parameters after the step within 1e-5 of one rank's."""
+    for r in ranks[0]:
+        got = r['micro']
+        assert got['err'] <= TOL, got['err']
+        assert got['seen'] and all(g == q and f32 for g, q, f32
+                                   in got['seen'].values()), got['seen']
 
 
 DRIVER = ['--arch', 'deepseek-7b', '--reduced', '--batch', '4', '--seq',
