@@ -27,41 +27,46 @@ firing) is held against ``loop='scan', rebuild_every=1``; 10 steps +
 ``nan_force`` fault is rolled back.  The serving phase drives
 ``repro_torch.launch.serve_forces.ForceServer`` (snap-2j8's model class,
 buckets n_pad 128 and 2048, lists 32 and 64 wide, batch 4, each lane its
-own beta): the batched brute build against the host build's pair sets and
-its CPU run's flags; the batched kernel entry (``make_batched_force_fn``)
-against the same function on the plain stages and the plain assembly in
-float64 and float32, and the assembly kernel against its plain version on
-the batched path's own inputs (8192 atoms, lane-offset lists); the
-Y kernel with a coefficient row a lane at 4 x 2048 against its plain
-version (equal rows give the one-row bits); a solo 2000-atom request
-against ``snap_force_pipeline`` and the float64 adjoint, and the float32
-adjoint against the float64 one; a batch of a healthy, a NaN-poisoned, an
-overflowing and a healthy request (typed failures, the peers bitwise equal
-to solo evaluations), one launch of each of U, Y, fused dE and the
-assembly a batched step, one build a bucket, no host synchronization in a
-batched evaluation, no degradation on clean runs; quarantine after two
-injected kernel faults; and a timed open-loop run of 40 requests (sizes
-128 and 2000 from seed 0, exponential arrivals at 200 a second, 15 %
-poisoned) with the launch counters set to 0 before and read after, the
-same at 400 requests for the tail, 400 clean requests offered at 5000 a
-second for the rate the service sustains, ms per batched step a bucket and
-a profile of one n2048 batched evaluation (the brute build's device time
-beside its bound).  The durability phase drives
+own beta): the batched brute build's kernel (``csrc/brute_neighbors.cu``)
+bitwise against its plain version on the card and on the CPU in float64
+and float32, in every lane of both buckets and on the edge-case batch
+(``repro_torch.md.edge_cases``), its pair sets against the host build, and
+a batched evaluation on the kernel's lists bitwise against the same
+function on the plain build's; the batched kernel entry
+(``make_batched_force_fn``) against the same function on the plain build,
+stages and assembly in float64 and float32, and the assembly kernel
+against its plain version on the batched path's own inputs (8192 atoms,
+lane-offset lists); the Y kernel with a coefficient row a lane at 4 x 2048
+against its plain version (equal rows give the one-row bits); a solo
+2000-atom request against ``snap_force_pipeline`` and the float64 adjoint,
+and the float32 adjoint against the float64 one; a batch of a healthy, a
+NaN-poisoned, an overflowing and a healthy request (typed failures, the
+peers bitwise equal to solo evaluations), one launch of each of the brute
+build, U, Y, fused dE and the assembly a batched step, one build a bucket,
+no host synchronization in a batched evaluation, no degradation on clean
+runs; quarantine after two injected kernel faults; and a timed open-loop
+run of 40 requests (sizes 128 and 2000 from seed 0, exponential arrivals
+at 200 a second, 15 % poisoned) with the launch counters set to 0 before
+and read after, the same at 400 requests for the tail, 400 clean requests
+offered at 5000 a second for the rate the service sustains, ms per batched
+step a bucket and a profile of one n2048 batched evaluation (the brute
+build's kernel and plain device times, in float64 and float32, beside its
+bound).  The durability phase drives
 ``repro_torch.launch.chaos.run_chaos_soak`` on the card: the reference's
-CI plan at 2J = 2 (8 requests, 25 % poisoned, kernel faults from the
-first step, crashes at dispatches 2 and 4, a 6-request burst; each step
-charged 0.25 s of virtual time so the burst sheds as behind the
-reference's interpret-mode steps) with its checks; then the tail run's
-schedule through the serving table (400 requests, crashes at dispatches
-60 and 180 with torn journal tails, a snapshot every 8 steps) with the
-launch counters set to 0 before and read after: the five invariants,
-three incarnations, every completed result bitwise equal to a fresh
-server's solo evaluation, one build a bucket an incarnation, no degraded
-step, one launch of each of U, Y, fused dE and the assembly in every
-batched step after a restore, and no host synchronization in a batched
-evaluation of replayed requests.  It times ``submit`` without and with a
-journal (fsync every 16 appends and every append, 128 and 2000 atoms),
-the tail and capacity runs without and with a journal in turns, a
+CI plan at 2J = 2 (8 requests, 25 % poisoned, kernel faults from the first
+step, crashes at dispatches 2 and 4, a 6-request burst; each step charged
+0.25 s of virtual time so the burst sheds as behind the reference's
+interpret-mode steps) with its checks; then the tail run's schedule
+through the serving table (400 requests, crashes at dispatches 60 and 180
+with torn journal tails, a snapshot every 8 steps) with the launch
+counters set to 0 before and read after: the five invariants, three
+incarnations, every completed result bitwise equal to a fresh server's
+solo evaluation, one build a bucket an incarnation, no degraded step, one
+launch of each of the brute build, U, Y, fused dE and the assembly in
+every batched step after a restore, and no host synchronization in a
+batched evaluation of replayed requests.  It times ``submit`` without and
+with a journal (fsync every 16 appends and every append, 128 and 2000
+atoms), the tail and capacity runs without and with a journal in turns, a
 snapshot of a full result store (256 results), the soak's restores and a
 drain of a 16-request backlog; journals and snapshots go to a temporary
 directory.  The sharded phase spawns 2 ranks on the one card over a gloo
@@ -247,6 +252,9 @@ KERNELS = {   # name: (source, pl.pallas_call site it replaces)
     # the reference's jnp neighbor build (_bin_atoms, device_neighbors)
     'cell_bin': (CSRC + 'cell_list.cu', 'src/repro/md/cell_list.py:133'),
     'cell_build': (CSRC + 'cell_list.cu', 'src/repro/md/cell_list.py:159'),
+    # the reference's jnp O(N^2) build, vmapped over a serving batch
+    'brute_build': (CSRC + 'brute_neighbors.cu',
+                    'src/repro/md/cell_list.py:204'),
 }
 HALF = ('snap_u_half', 'snap_y_half', 'snap_fused_de_half')
 FULL = ('snap_u_full', 'snap_y_full', 'snap_fused_de_full')
@@ -259,9 +267,11 @@ PATHS = {
     # run_nve(loop='device'): one gated rebuild (two launches) a step
     'device': HALF + ('assemble_forces', 'cell_bin', 'cell_build'),
     # ForceServer: one launch of each a batched step, whatever the batch
-    'serve': HALF + ('assemble_forces',),
+    'serve': HALF + ('assemble_forces', 'brute_build'),
 }
-CELL = ('cell_bin', 'cell_build')
+# the neighbor builds: held against their plain versions in their own
+# phases (neighbor, serve), not in the kernel phase
+NEIGHBOR = ('cell_bin', 'cell_build', 'brute_build')
 # kernels with a launch plan: name -> 'u' (u_plan), 'y' (y_plan) or 'de'
 # (de_plan)
 PLANNED = {'snap_u_half': 'u', 'snap_u_full': 'u',
@@ -444,12 +454,13 @@ def ptxas_phase(built):
           f'{sorted(set(v["registers"] for v in y.values()))}, stack frames '
           f'{sorted(set(v.get("stack") for v in y.values()))} B, spill stores '
           f'{sorted(set(v.get("spill_stores") for v in y.values()))} B')
-    cell = {k: v for k, v in report.items()
-            if 'cell_bin_kernel' in k or 'cell_build_kernel' in k}
-    check(len(cell) == 4,
-          f'ptxas: {len(cell)} cell-list kernels (bin, build x f32, f64), '
+    nbr = {k: v for k, v in report.items()
+           if any(f'{n}_kernel' in k for n in NEIGHBOR)}
+    check(len(nbr) == 6,
+          f'ptxas: {len(nbr)} neighbor kernels (cell bin, cell build, brute '
+          'build x f32, f64), '
           + ', '.join(f'{k}: {v["registers"]} registers, {v.get("stack")} B '
-                      'stack' for k, v in sorted(cell.items())))
+                      'stack' for k, v in sorted(nbr.items())))
     return report
 
 
@@ -1164,37 +1175,84 @@ def serve_batches(table, dev):
     return out
 
 
-def serve_neighbor_checks(batches):
-    """First contact of the batched brute build on the card: pair sets
-    against the host build, flags (and lists) against the CPU run."""
+def serve_neighbor_checks(batches, dev):
+    """The batched brute build on the card: the kernel's four outputs
+    bitwise against its plain version on the card and on the CPU (float64
+    and float32, every lane of both buckets and the edge-case batch), its
+    pair sets against the host build (float64), and the batched
+    evaluation on the kernel's lists bitwise against the same function on
+    the plain build's (float32 and float64 compute, both buckets)."""
+    from repro_torch.kernels import neighbors as kn
+    from repro_torch.kernels import ops
     from repro_torch.md import cell_list as cl
+    from repro_torch.md.edge_cases import (EDGE_K, EDGE_RCUT,
+                                           brute_edge_batch)
     from repro_torch.md.neighbor import brute_neighbors
+    cases = []      # (what, bucket n_pad for the pair-set check, args)
     for n_pad, (bucket, a) in batches.items():
-        args = (a['pos'], a['box'], RCUT, bucket.max_nbors, a['n_valid'])
-        got = cl.brute_neighbors_batched(*args)
-        cpu = cl.brute_neighbors_batched(
-            *(t.cpu() if isinstance(t, torch.Tensor) else t for t in args))
-        got = [t.cpu() for t in got]
-        same = all(torch.equal(g, c) for g, c in zip(got, cpu))
-        ni, m = got[0].numpy(), got[1].numpy()
+        for dtype in (torch.float64, torch.float32):
+            cases.append((f'n{n_pad} {str(dtype)[6:]}',
+                          n_pad if dtype == torch.float64 else None,
+                          (a['pos'].to(dtype), a['box'].to(dtype), RCUT,
+                           bucket.max_nbors, a['n_valid'])))
+    for dtype in (np.float64, np.float32):
+        pos, box, n_valid = brute_edge_batch(dtype)
+        cases.append((f'edge-case batch {dtype.__name__}', None, (
+            torch.as_tensor(pos, device=dev), torch.as_tensor(box, device=dev),
+            EDGE_RCUT, EDGE_K, torch.as_tensor(n_valid, device=dev))))
+    for what, n_pad, args in cases:
+        got = kn.brute_build(*args)
+        plain = kn.brute_build_plain(*args)
+        cpu = kn.brute_build_plain(*(t.cpu() if isinstance(t, torch.Tensor)
+                                     else t for t in args))
+        torch.cuda.synchronize()
+        on_card = all(torch.equal(g, p) for g, p in zip(got, plain))
+        on_cpu = all(torch.equal(g.cpu(), c) for g, c in zip(got, cpu))
+        check(on_card and on_cpu,
+              f'serve brute_build {what}: kernel vs plain bitwise on nbr_idx '
+              f'{list(got[0].shape)}, mask, disp and flags, on the card '
+              f'({on_card}) and on the CPU ({on_cpu}); counts '
+              f'{got[3][:, 0].tolist()} (K {got[0].shape[2]}), n_valid '
+              f'{args[4].tolist()}')
+        if n_pad is None:
+            continue
+        ni, m = got[0].cpu().numpy(), got[1].cpu().numpy()
         pairs = True
         for b in range(SERVE_BATCH):
-            n = int(a['n_valid'][b])
+            n = int(args[4][b])
             h_idx, h_mask, _, _ = brute_neighbors(
-                a['pos'][b, :n].cpu().numpy(), a['box'][b].cpu().numpy(),
-                RCUT, bucket.max_nbors)
+                args[0][b, :n].cpu().numpy(), args[1][b].cpu().numpy(),
+                RCUT, args[3])
             pairs &= all(set(ni[b, i, m[b, i]]) == set(h_idx[i, h_mask[i]])
                          for i in range(n))
-        check(pairs and torch.equal(got[3], cpu[3]),
-              f'serve brute build n{n_pad} on the card: pair sets equal to '
-              f'the host brute_neighbors in all {SERVE_BATCH} lanes, flags '
-              f'{got[3].tolist()} equal to the CPU run\'s (lists bitwise '
-              f'equal to the CPU run: {same})')
+        check(pairs, f'serve brute_build n{n_pad} float64 on the card: pair '
+              f'sets equal to the host brute_neighbors in all '
+              f'{SERVE_BATCH} lanes')
+    # the batched evaluation on the kernel's lists vs on the plain build's
+    for n_pad, (bucket, a) in batches.items():
+        for dtype in (torch.float32, torch.float64):
+            fn = serve_fn(bucket, dev, dtype)
+            ops.reset_launch_counts()
+            e_k, f_k, fl_k = fn(**a)
+            kernel_launches = ops.launch_counts()['brute_build']
+            with mock.patch.object(cl, 'brute_build', kn.brute_build_plain):
+                e_p, f_p, fl_p = fn(**a)
+            torch.cuda.synchronize()
+            plain_launches = ops.launch_counts()['brute_build'] - \
+                kernel_launches
+            check(torch.equal(e_k, e_p) and torch.equal(f_k, f_p)
+                  and torch.equal(fl_k, fl_p) and kernel_launches == 1
+                  and plain_launches == 0,
+                  f'serve batched evaluation n{n_pad} {str(dtype)[6:]}: on '
+                  f'the brute_build kernel\'s lists ({kernel_launches} '
+                  f'launch) bitwise equal to the same function on the plain '
+                  f'build\'s ({plain_launches} launches): energies, forces, '
+                  f'flags')
 
 
 def serve_kernel_checks(batches, dev):
     """The batched kernel entry against the same batched function built
-    from the plain stages and the plain assembly (f64 and f32, both
+    from the plain neighbor build, stages and assembly (f64 and f32, both
     buckets); the assembly kernel against its plain version on the dE/dr,
     lane-offset lists and sentinels the batched path gave it; the per-lane
     Y kernel against its plain version at 4 x 2048 with times and bound;
@@ -1202,11 +1260,13 @@ def serve_kernel_checks(batches, dev):
     from repro_torch.core import snap as core_snap
     from repro_torch.core.snap import SnapConfig
     from repro_torch.kernels import ops
+    from repro_torch.kernels import neighbors as kn
     from repro_torch.kernels.assemble import assemble_forces_csr_plain
     from repro_torch.kernels.snap_y import (snap_y_half, snap_y_half_plain,
                                             y_coef_half, y_launch_tables)
     from repro_torch.kernels.launch_plan import y_plan
     from repro_torch.kernels.snap_u import snap_u_half_plain
+    from repro_torch.md import cell_list as cl
     for n_pad, (bucket, a) in batches.items():
         for dtype in (torch.float64, torch.float32):
             fn = serve_fn(bucket, dev, dtype)
@@ -1220,7 +1280,9 @@ def serve_kernel_checks(batches, dev):
             ops.reset_launch_counts()
             with mock.patch.object(ops, '_STAGES', ops._PLAIN_STAGES), \
                     mock.patch.object(core_snap, 'assemble_forces_csr',
-                                      assemble_forces_csr_plain):
+                                      assemble_forces_csr_plain), \
+                    mock.patch.object(cl, 'brute_build',
+                                      kn.brute_build_plain):
                 e_p, f_p, fl_p = fn(**a)
             plain_launches = sum(ops.launch_counts().values())
             _, err_f = rel_err(f_k, f_p)
@@ -1229,7 +1291,7 @@ def serve_kernel_checks(batches, dev):
             check(err_f <= bar and err_e <= bar and torch.equal(fl_k, fl_p)
                   and plain_launches == 0,
                   f'serve batched kernel entry n{n_pad} {str(dtype)[6:]} vs '
-                  f'the same function on the plain stages and assembly '
+                  f'the same function on the plain build, stages and assembly '
                   f'({plain_launches} kernel launches): forces {err_f:.3e}'
                   f', energies {err_e:.3e} (bar {bar:.0e}), flags equal; '
                   f'E {[round(float(x), 6) for x in e_k]} eV')
@@ -1495,15 +1557,60 @@ def open_loop(table, dev, n, rate, bad, tag, journal=None):
     return h, counts, ol
 
 
+def brute_timing(bucket, a):
+    """The brute build alone on a packed batch ``a`` of ``bucket``, kernel
+    and plain version, on its float64 positions and on the same positions
+    in float32: {dtype: numbers of the kernels line}.  The bound: positions,
+    boxes and counts read once, lists, masks, displacements and flags
+    written once; 20 operations (3 sub, 3 div, 3 rint, 3 mul, 3 sub, 5 for
+    r2, 1 compare) a pair the kernel tests, each valid atom of a lane
+    against the lane's other valid atoms."""
+    from repro_torch.kernels import neighbors as kn
+    n_valid = a['n_valid'].tolist()
+    pairs = sum(n * (n - 1) for n in n_valid)
+    brute = {}
+    for dtype in (torch.float64, torch.float32):
+        args = (a['pos'].to(dtype), a['box'].to(dtype), RCUT,
+                bucket.max_nbors, a['n_valid'])
+        got, ref = kn.brute_build(*args), kn.brute_build_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        abs_err = max(float((g.double() - r.double()).abs().max())
+                      for g, r in zip(got, ref))
+        nb = nbytes(*args[:2], args[4], *got)
+        b_ms, b_by = bound(nb, 20 * pairs, dtype)
+        ms = time_ms(lambda: kn.brute_build(*args))
+        plain_ms = time_ms(lambda: kn.brute_build_plain(*args), reps=5)
+        dev_ms, hidden = device_ms(lambda: kn.brute_build(*args), k=5)
+        plain_dev, plain_hidden = device_ms(
+            lambda: kn.brute_build_plain(*args), k=5)
+        dt = str(dtype)[6:]
+        print(f'     brute_build n{bucket.n_pad} {dt} ({SERVE_BATCH} lanes, '
+              f'n_valid {n_valid}): {ms:.4f} ms per call, {dev_ms:.4f} ms '
+              f'device{"" if hidden else " (host time leaked in)"}; plain '
+              f'{plain_ms:.4f} ms per call, {plain_dev:.4f} ms device; bound '
+              f'{b_ms:.5f} ms by {b_by} ({pairs} pairs, {nb / 1e6:.3f} MB); '
+              f'kernel vs plain bitwise {same}', flush=True)
+        brute[dtype] = dict(max_abs_err=abs_err, max_rel_err=0.0 if same
+                            else float('inf'), ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            device_ms=dev_ms, device_ms_hidden=hidden,
+                            plain_device_ms=plain_dev,
+                            plain_device_ms_hidden=plain_hidden,
+                            library_device_ms=None, pairs=pairs)
+    return brute
+
+
 def serve_timing(srv, table, batches, dev):
     """The open-loop run (the serving main path: launch counters set to 0
     before, read after); a ten times longer run at the same rate for the
     tail; a run offered above capacity for the rate the service sustains;
-    ms per batched step a bucket; and a profile of one n2048 batched step.
-    Returns (launch counts of the main path's run, numbers)."""
+    ms per batched step a bucket; a profile of one n2048 batched step; the
+    brute build's kernel and plain version timed on that batch.  Returns
+    (launch counts of the main path's run, numbers, the build's kernel
+    numbers a dtype)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.md import cell_list as cl
     # every shared cache (libraries, tables, plans) is warm: srv served
     # both sizes; a fresh server times each run
     srv.evaluate(serve_request('warm', OPEN_SIZES[0], 99))
@@ -1551,33 +1658,23 @@ def serve_timing(srv, table, batches, dev):
                           f'serve profile n{bucket.n_pad} f32',
                           'batched evaluation', 12) or {}
     stage = {k: sum(us for name, (_, us) in per.items() if k in name) / reps
-             / 1e3 for k in ('snap_u', 'snap_y', 'snap_fused_de',
-                             'assemble_forces')}
-    build_args = (a['pos'], a['box'], RCUT, bucket.max_nbors, a['n_valid'])
-    build_ms, hidden_b = device_ms(
-        lambda: cl.brute_neighbors_batched(*build_args), k=5)
+             / 1e3 for k in ('brute_build', 'snap_u', 'snap_y',
+                             'snap_fused_de', 'assemble_forces')}
     eval_ms, hidden_e = device_ms(lambda: fn(**a), k=5)
-    # the build's bound: positions, boxes and counts read once, lists,
-    # masks, displacements and flags written once; 20 operations a pair
-    # of the B x n_pad^2 it tests (3 sub, 3 div, 3 round, 3 mul, 3 sub, 5
-    # for r2, 1 compare), f64
-    lists = cl.brute_neighbors_batched(*build_args)
-    pairs = a['pos'].shape[0] * a['pos'].shape[1] ** 2
-    build_bound, build_by = bound(
-        nbytes(a['pos'], a['box'], a['n_valid'], *lists), 20 * pairs,
-        a['pos'].dtype)
+    brute = brute_timing(bucket, a)
+    st = brute[a['pos'].dtype]          # the service's positions
+    build_ms = st['device_ms']
     out.update(build_device_ms=build_ms, eval_device_ms=eval_ms,
-               build_share=build_ms / eval_ms, build_bound_ms=build_bound,
-               build_bound_by=build_by,
+               build_share=build_ms / eval_ms,
+               build_plain_device_ms=st['plain_device_ms'],
+               build_bound_ms=st['bound_ms'], build_bound_by=st['bound_by'],
                **{f'{k}_device_ms': v for k, v in stage.items()})
     print(f'     serve n{bucket.n_pad}: brute build {build_ms:.4f} ms device '
-          f'(bound {build_bound:.4f} ms by {build_by}: {pairs} pairs, '
-          f'{nbytes(a["pos"], a["box"], a["n_valid"], *lists) / 1e6:.3f} '
-          f'MB), batched evaluation {eval_ms:.4f} ms device (build share '
-          f'{build_ms / eval_ms:.3f}; host hidden {hidden_b}/{hidden_e}); '
-          'kernels in the profile: ' + ', '.join(
+          f'({str(a["pos"].dtype)[6:]} positions), batched evaluation '
+          f'{eval_ms:.4f} ms device (build share {build_ms / eval_ms:.3f}; '
+          f'host hidden {hidden_e}); kernels in the profile: ' + ', '.join(
               f'{k} {v:.4f} ms' for k, v in stage.items()), flush=True)
-    return counts, out
+    return counts, out, brute
 
 
 def serve_phase(dev):
@@ -1585,13 +1682,13 @@ def serve_phase(dev):
     t0 = time.perf_counter()
     table = default_serve_table()
     batches = serve_batches(table, dev)
-    serve_neighbor_checks(batches)
+    serve_neighbor_checks(batches, dev)
     y_lanes = serve_kernel_checks(batches, dev)
     srv = serve_service_checks(table, dev)
-    counts, numbers = serve_timing(srv, table, batches, dev)
+    counts, numbers, brute = serve_timing(srv, table, batches, dev)
     print(f'     serve phase: {time.perf_counter() - t0:.1f} s wall',
           flush=True)
-    return counts, numbers, y_lanes
+    return counts, numbers, y_lanes, brute
 
 
 def step_cost_timer():
@@ -1745,7 +1842,8 @@ def soak_wide(table, dev, workdir):
           and all(impl == 'kernel' for _, impl, _ in steps)
           and counts == {k: n_kernel * want[k] for k in counts},
           f'durability: {len(after_restore)} batched steps after a restore, '
-          f'each launched one of each of U, Y, fused dE and the assembly '
+          f'each launched one of each of the brute build, U, Y, fused dE '
+          f'and the assembly '
           f'({sum(d == want for d in after_restore)} did); the soak\'s '
           f'{n_kernel} kernel-path steps (with the bitwise check\'s solo '
           f'evaluations) launched {counts}')
@@ -3340,7 +3438,7 @@ def run_phases(dev, dry):
           f'{int(mask.sum(1).min())}..{int(mask.sum(1).max())}, '
           f'idxu_half_max {cfg.index.idxu_half_max}, idxu_max '
           f'{cfg.index.idxu_max}', flush=True)
-    snap = [k for k in KERNELS if k not in CELL]
+    snap = [k for k in KERNELS if k not in NEIGHBOR]
     stats = {dtype: kernel_phase(cfg, beta, nbr_idx, mask, disp, dtype, dev,
                                  snap)
              for dtype in (torch.float64, torch.float32)}
@@ -3357,7 +3455,9 @@ def run_phases(dev, dry):
     runs['device'] = device_loop_phase(cfg, beta, pos, box, dev)
     sharded_counts, sharded_numbers = sharded_phase(
         cfg, beta, pos, box, nbr_idx, mask, disp, dev, runs['device'][1])
-    serve_counts, serve_numbers, y_lanes = serve_phase(dev)
+    serve_counts, serve_numbers, y_lanes, brute = serve_phase(dev)
+    for dtype, st in brute.items():
+        stats[dtype]['brute_build'] = st
     print('serve: ' + json.dumps(serve_numbers), flush=True)
     durable_counts, durable_numbers = durability_phase(dev)
     print('durability: ' + json.dumps(durable_numbers), flush=True)
@@ -3382,7 +3482,8 @@ def run_phases(dev, dry):
     # each phase of this slice launched every kernel of its path
     check(all(analysis_counts[k] > 0 for k in KERNELS),
           f'analysis: every kernel launched ({analysis_counts})')
-    check(all(example_counts[k] > 0 for k in PATHS['device']),
+    check(all(example_counts[k] > 0
+              for k in PATHS['device'] + PATHS['serve']),
           f'examples: every kernel of the device-loop and serving path '
           f'launched ({example_counts})')
 
@@ -3394,8 +3495,10 @@ def run_phases(dev, dry):
                    else (stats[torch.float64][name], 'float64'))
         # top: max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms,
         # max_rel_err (and the bf16 kernel's rel_gap_unrounded)
+        # the serving path's main run is the open loop (serve_counts)
+        main = serve_counts if path == 'serve' else runs[path][0]
         entry = dict(name=name, route='cuda', source=source,
-                     replaces=replaces, launches=runs[path][0][name], **top,
+                     replaces=replaces, launches=main[name], **top,
                      dtype=dt, path=path,
                      launches_device_loop=runs['device'][0][name],
                      launches_serve=serve_counts[name],

@@ -64,7 +64,8 @@ def launch_flops(rec) -> float:
     """Operations of one :class:`~repro_torch.analysis.launches.LaunchRecord`
     from its shapes: U, Y and fused dE by the counts above (pairs = nnbor x
     lanes; Y: the coefficient table's nnz x lanes), the assembly 6 a pair,
-    the cell bin 12 an atom and the cell build 20 a table slot it walks."""
+    the cell bin 12 an atom, the cell build 20 a table slot it walks and
+    the brute build 20 a pair of its B x N x N."""
     name, tj = rec.name, rec.meta.get('twojmax', 0)
     if name.startswith('snap_u_'):
         pairs = rec.in_shapes[0][0] * rec.lanes
@@ -85,4 +86,6 @@ def launch_flops(rec) -> float:
         return 12 * rec.lanes
     if name == 'cell_build':
         return 20 * rec.meta.get('slots', 0)
+    if name == 'brute_build':
+        return 20 * rec.meta.get('pairs', 0)
     raise ValueError(f'no operation count for kernel {name!r}')

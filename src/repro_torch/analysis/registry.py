@@ -296,7 +296,8 @@ def default_registry(device='cuda') -> List[EntryPoint]:
             # the lane-granularity padding tax is real and visible (7/8);
             # the budget ratchet holds it, the limit documents it
             pad_dims={2 * 128: 2 * SERVE_N_PAD}, plane_rows=plane_rows,
-            lane_cols=(2 * 128,), pad_waste_limit=0.95, launches=once(HALF),
+            lane_cols=(2 * 128,), pad_waste_limit=0.95,
+            launches=once(HALF + ('brute_build',)),
             description='batched serving bucket step (B=2, n_pad=16)'),
     ]
     if _in_group():

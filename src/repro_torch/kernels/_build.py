@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / 'build'
 SOURCES = ('snap_u', 'snap_y', 'snap_fused_de', 'assemble_forces',
-           'cell_list')
+           'cell_list', 'brute_neighbors')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

@@ -25,10 +25,8 @@
 //   pos_ref[i] when pos_ref is given.
 //
 // Which pairs fall inside the cutoff is decided by float rounding, so the
-// arithmetic is the reference's, step by step, with every product, sum and
-// quotient rounded on its own (the _rn intrinsics: no FMA contraction) and
-// rint (round half to even, as jnp.round): the lists are then bitwise those
-// of the plain PyTorch version (kernels/neighbors.py).
+// arithmetic is the reference's, step by step (rn_math.cuh): the lists are
+// then bitwise those of the plain PyTorch version (kernels/neighbors.py).
 //
 // Bound on the H100: bytes.  At snap-2j8 the build writes 2000 x 52 lists
 // (index, mask, three shifts: ~2.9 MB in f64) and reads 48 KB of positions
@@ -37,35 +35,11 @@
 // Neither launch is tuned: a warp walks 27 x 25 slots in 27 chunks of 32
 // lanes, 7 of them idle, and three f64 divisions a candidate dominate.
 
+#include "rn_math.cuh"
 #include "snap_common.cuh"
 
 #define CELL_FLAG_NBR_MAX 0
 #define CELL_FLAG_CELL_MAX 1
-
-__device__ __forceinline__ float rn_add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double rn_add(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ float rn_sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ double rn_sub(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ float rn_mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double rn_mul(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float rn_div(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-__device__ __forceinline__ double rn_div(double a, double b) {
-  return __ddiv_rn(a, b);
-}
 
 // Bin of one coordinate: frac = p / box, wrapped by frac - floor(frac),
 // scaled by n, truncated, clamped to n - 1 (and to 0: a non-finite

@@ -1,9 +1,12 @@
-"""Linked-cell neighbor build, gated by a device flag (``csrc/cell_list.cu``).
+"""The neighbor builds on the card: the linked-cell build of the MD device
+loop, gated by a device flag (``csrc/cell_list.cu``), and the serving
+path's O(N^2) build (``csrc/brute_neighbors.cu``).
 
 The reference builds its lists with jnp (``repro/md/cell_list.py``:
-``_bin_atoms`` and ``device_neighbors``, no Pallas kernel).  The port's MD
-device loop needs a build that is decided on the card, deterministic and
-free of host synchronization, so the build is two hand-written kernels:
+``_bin_atoms``, ``device_neighbors`` and ``brute_neighbors_device``, no
+Pallas kernel).  The port's MD device loop needs a build that is decided
+on the card, deterministic and free of host synchronization, so the cell
+build is two hand-written kernels:
 
 - :func:`cell_bin` — the static ``[ncells, cell_cap]`` cell table (atom
   indices, N as the empty sentinel, atoms of a cell in increasing index),
@@ -14,13 +17,21 @@ free of host synchronization, so the build is two hand-written kernels:
   to the largest count and copying ``pos`` into ``pos_ref``.
 
 Both take ``trigger``, a 0-d int32 tensor: when it is 0 the kernels return
-at once and every buffer is left as it was.  Each wrapper runs its plain
-PyTorch version (``*_plain``: the reference's arithmetic as torch ops,
-which reads ``trigger`` on the host) on a CPU tensor, launches its kernel
-on a CUDA tensor and raises otherwise.  :func:`neighbors_plain` is the
-reference's ``device_neighbors`` line for line, with ``r2`` summed as
+at once and every buffer is left as it was.  The force service's batched
+step builds the lists of all its lanes with one more kernel:
+
+- :func:`brute_build` — ``brute_neighbors_device`` of every lane of a
+  batch at once: each atom below its lane's ``n_valid`` against every
+  other, valid pairs packed to the front in index order, the lane's
+  largest count in its row of ``flags``.
+
+Each wrapper runs its plain PyTorch version (``*_plain``: the reference's
+arithmetic as torch ops; the cell versions read ``trigger`` on the host)
+on a CPU tensor, launches its kernel on a CUDA tensor and raises
+otherwise.  :func:`neighbors_plain` is the reference's
+``device_neighbors`` line for line, with ``r2`` summed as
 ``(x² + y²) + z²`` like the kernel, so kernel and plain lists are bitwise
-equal.
+equal; :func:`brute_build_plain` likewise.
 
 ``grid`` is a :class:`repro_torch.md.cell_list.CellGrid` (read for its
 ``nbins``, ``cell_cap``, ``max_nbors``, ``rcut_build`` and ``stencil``;
@@ -42,6 +53,7 @@ _P, _I, _D = _build.P, _build.I, _build.D
 _BIN_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
 _BUILD_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                _D)
+_BRUTE_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D)
 
 
 @lru_cache(maxsize=64)
@@ -49,19 +61,25 @@ def _stencil_of(nbins):
     return tuple(dedup_stencil(nbins))
 
 
-def _check(pos, box, grid, trigger, flags):
+def _check_pos(pos, box, ndim):
     if not isinstance(pos, torch.Tensor):
         raise TypeError(f'pos must be a tensor, got {type(pos).__name__}')
     if pos.dtype not in (torch.float32, torch.float64):
         raise TypeError(f'pos dtype must be float32/float64, got '
                         f'{pos.dtype}')
-    if pos.ndim != 2 or pos.shape[1] != 3 or not pos.is_contiguous():
-        raise ValueError(f'pos must be contiguous [N, 3], got '
+    want = 'N, 3' if ndim == 2 else 'B, N, 3'
+    if pos.ndim != ndim or pos.shape[-1] != 3 or not pos.is_contiguous():
+        raise ValueError(f'pos must be contiguous [{want}], got '
                          f'{tuple(pos.shape)}')
-    if box.dtype != pos.dtype or tuple(box.shape) != (3,) or \
-            box.device != pos.device or not box.is_contiguous():
-        raise ValueError(f'box must be a contiguous [3] {pos.dtype} tensor '
+    if box.dtype != pos.dtype or tuple(box.shape) != tuple(pos.shape[:-2]) + \
+            (3,) or box.device != pos.device or not box.is_contiguous():
+        raise ValueError(f'box must be a contiguous '
+                         f'{list(pos.shape[:-2]) + [3]} {pos.dtype} tensor '
                          f'on {pos.device}')
+
+
+def _check(pos, box, grid, trigger, flags):
+    _check_pos(pos, box, 2)
     if trigger.dtype != torch.int32 or trigger.numel() != 1 or \
             trigger.device != pos.device:
         raise ValueError(f'trigger must be a 0-d int32 tensor on '
@@ -198,6 +216,34 @@ def cell_build_plain(pos, box, grid, table, trigger, nbr_idx, mask, shifts,
         pos_ref.copy_(pos)
 
 
+def brute_build_plain(pos, box, rcut, max_nbors: int, n_valid):
+    """Plain :func:`brute_build`: the reference's ``brute_neighbors_device``
+    of every lane as torch ops (``jax.vmap`` written out as a batch axis;
+    ``[B, N, N, 3]`` temporaries)."""
+    B, N, dev = pos.shape[0], pos.shape[1], pos.device
+    box = torch.as_tensor(box, dtype=pos.dtype, device=dev)[:, None, None, :]
+    iota = torch.arange(N, dtype=torch.int32, device=dev)
+    ok_atom = iota[None, :] < torch.as_tensor(n_valid, device=dev)[:, None]
+    d = pos[:, None, :, :] - pos[:, :, None, :]
+    dd = d - box * torch.round(d / box)
+    r2 = (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]) + \
+        dd[..., 2] * dd[..., 2]
+    within = ((iota[None, :] != iota[:, None])[None]
+              & ok_atom[:, None, :] & ok_atom[:, :, None]
+              & (r2 < rcut * rcut))
+    counts = within.sum(dim=2)
+    key = torch.logical_not(within).to(torch.int32)
+    ordk = torch.argsort(key, dim=2, stable=True)[:, :, :max_nbors]
+    mask = torch.take_along_dim(within, ordk, dim=2)
+    nbr_idx = torch.where(mask, ordk, 0).to(torch.int32)
+    disp = torch.where(mask[..., None],
+                       torch.take_along_dim(dd, ordk[..., None], dim=2), 0.0)
+    flags = torch.stack([counts.amax(dim=1).to(torch.int32),
+                         torch.zeros(B, dtype=torch.int32, device=dev)],
+                        dim=1)
+    return nbr_idx, mask, disp, flags
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -255,3 +301,41 @@ def cell_build(pos, box, grid, table, trigger, nbr_idx, mask, shifts, flags,
                   grid.rcut_build * grid.rcut_build)
     # the lists are written in place: no output of its own
     launches.record('cell_build', (pos, box, table, trigger), None, **meta)
+
+
+def brute_build(pos, box, rcut, max_nbors: int, n_valid):
+    """The O(N^2) lists of B configurations in one launch: ``pos`` [B, N, 3]
+    float32/float64, ``box`` [B, 3] and ``n_valid`` [B] (integers, read on
+    the device) on one device; atoms at or past a lane's ``n_valid`` have no
+    pairs.  Returns ``(nbr_idx [B, N, K] int32, mask [B, N, K] bool, disp
+    [B, N, K, 3], flags [B, 2] int32)`` with K = min(max_nbors, N), the
+    pairs within ``rcut`` (a Python number) packed to the front in index
+    order and ``flags[:, 0]`` each lane's largest count (past K)."""
+    if isinstance(pos, torch.Tensor):
+        box = torch.as_tensor(box, dtype=pos.dtype, device=pos.device)
+        n_valid = torch.as_tensor(n_valid, device=pos.device)
+    _check_pos(pos, box, 3)
+    (B, N, _), dev = pos.shape, pos.device
+    if tuple(n_valid.shape) != (B,) or \
+            n_valid.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f'n_valid must be an integer [{B}] tensor, got '
+                         f'{n_valid.dtype} {tuple(n_valid.shape)}')
+    meta = dict(lanes=B * N, pairs=B * N * N)
+    if dev.type == 'cpu':
+        return launches.plain('brute_build', (pos, box, n_valid), meta,
+                              brute_build_plain, pos, box, rcut, max_nbors,
+                              n_valid)
+    _kernel_device(pos, 'brute_build')
+    n_valid = n_valid.to(torch.int32).contiguous()
+    K = min(int(max_nbors), N)
+    out = (torch.empty((B, N, K), dtype=torch.int32, device=dev),
+           torch.empty((B, N, K), dtype=torch.bool, device=dev),
+           torch.empty((B, N, K, 3), dtype=pos.dtype, device=dev),
+           torch.zeros((B, 2), dtype=torch.int32, device=dev))
+    # the f32 instance rounds rcut * rcut (a double) to float, as PyTorch
+    # rounds the Python scalar it compares an f32 tensor with
+    _build.launch('brute_neighbors', f'brute_build_{_sfx(pos.dtype)}',
+                  _BRUTE_ARGS, pos, box, n_valid, *out, B, N, K,
+                  float(rcut) * float(rcut))
+    launches.record('brute_build', (pos, box, n_valid), out, **meta)
+    return out

@@ -50,7 +50,7 @@ LAYOUTS = ('half', 'full')
 KERNELS = ('snap_u_half', 'snap_y_half', 'snap_y_half_bf16',
            'snap_fused_de_half', 'snap_u_full', 'snap_y_full',
            'snap_fused_de_full', 'assemble_forces', 'cell_bin',
-           'cell_build')
+           'cell_build', 'brute_build')
 # (U, Y, fused dE, Y coefficient) per layout: wrappers and plain versions
 _STAGES = {
     'half': (snap_u_half, snap_y_half, snap_fused_de_half, y_coef_half),
@@ -326,8 +326,9 @@ def make_batched_force_fn(cfg: SnapConfig, n_pad: int, max_nbors: int,
 
     on ``device`` (inputs: tensors on it, or arrays).  Each lane is one
     configuration: the fixed-shape O(N^2) neighbor build
-    (:func:`repro_torch.md.cell_list.brute_neighbors_batched`, in the
-    positions' dtype), then the force pipeline.  Atoms at index >=
+    (:func:`repro_torch.md.cell_list.brute_neighbors_batched`, one launch
+    of the ``brute_build`` kernel for all lanes, in the positions' dtype),
+    then the force pipeline.  Atoms at index >=
     ``n_valid`` are masked out of the energy and the forces.
 
     impl='kernel': the B lanes side by side on one atom axis, each padded

@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from ..core.snap import resolve_device
-from ..kernels.neighbors import cell_bin, cell_build, neighbors_plain
+from ..kernels.neighbors import (brute_build, cell_bin, cell_build,
+                                 neighbors_plain)
 from .neighbor import NeighborOverflowError, dedup_stencil, suggest_capacity
 
 # Health-flag lattice layout (int32 vector carried through the device
@@ -178,8 +179,7 @@ def rebuild_if(trigger, pos, box, grid: CellGrid, nbr_idx, shifts, mask,
 
 
 def brute_neighbors_device(pos, box, rcut, max_nbors: int, n_valid=None):
-    """Fixed-shape O(N^2) neighbor build for one configuration (plain
-    torch, no kernel).
+    """Fixed-shape O(N^2) neighbor build for one configuration.
 
     The serving counterpart of :func:`device_neighbors`: no grid statics,
     ``n_valid`` (int or 0-d tensor) masks trailing padding atoms out of
@@ -200,38 +200,19 @@ def brute_neighbors_device(pos, box, rcut, max_nbors: int, n_valid=None):
 
 
 def brute_neighbors_batched(pos, box, rcut, max_nbors: int, n_valid):
-    """The O(N^2) build of B configurations at once (plain torch; the
-    reference builds it as ``jax.vmap`` of its one-lane jnp build).
+    """The O(N^2) build of B configurations at once (the reference builds it
+    as ``jax.vmap`` of its one-lane jnp build): one launch of the
+    ``brute_build`` kernel on the card, its plain version on the CPU
+    (:func:`repro_torch.kernels.neighbors.brute_build`).
 
     ``pos`` [B, N, 3], ``box`` [B, 3] and ``n_valid`` [B] are tensors on one
     device.  A lane's outputs depend on that lane alone, and nothing is
     read back to the host.  r^2 is (x^2 + y^2) + z^2 and the valid pairs
-    are packed to the front of each row by a stable sort, as in the
-    reference.  Returns ``(nbr_idx [B, N, K] int32, mask [B, N, K] bool,
-    disp [B, N, K, 3], flags [B, 2] int32)``.
+    are packed to the front of each row in index order, as the reference's
+    stable sort packs them.  Returns ``(nbr_idx [B, N, K] int32, mask [B,
+    N, K] bool, disp [B, N, K, 3], flags [B, 2] int32)``.
     """
-    B, N, dev = pos.shape[0], pos.shape[1], pos.device
-    box = torch.as_tensor(box, dtype=pos.dtype, device=dev)[:, None, None, :]
-    iota = torch.arange(N, dtype=torch.int32, device=dev)
-    ok_atom = iota[None, :] < torch.as_tensor(n_valid, device=dev)[:, None]
-    d = pos[:, None, :, :] - pos[:, :, None, :]
-    dd = d - box * torch.round(d / box)
-    r2 = (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]) + \
-        dd[..., 2] * dd[..., 2]
-    within = ((iota[None, :] != iota[:, None])[None]
-              & ok_atom[:, None, :] & ok_atom[:, :, None]
-              & (r2 < rcut * rcut))
-    counts = within.sum(dim=2)
-    key = torch.logical_not(within).to(torch.int32)
-    ordk = torch.argsort(key, dim=2, stable=True)[:, :, :max_nbors]
-    mask = torch.take_along_dim(within, ordk, dim=2)
-    nbr_idx = torch.where(mask, ordk, 0).to(torch.int32)
-    disp = torch.where(mask[..., None],
-                       torch.take_along_dim(dd, ordk[..., None], dim=2), 0.0)
-    flags = torch.stack([counts.amax(dim=1).to(torch.int32),
-                         torch.zeros(B, dtype=torch.int32, device=dev)],
-                        dim=1)
-    return nbr_idx, mask, disp, flags
+    return brute_build(pos, box, rcut, max_nbors, n_valid)
 
 
 def check_flags(flags, grid: CellGrid):

@@ -160,4 +160,4 @@ def test_cpu_path_launches_no_kernel():
                            'snap_y_half_bf16', 'snap_fused_de_half',
                            'snap_u_full', 'snap_y_full',
                            'snap_fused_de_full', 'assemble_forces',
-                           'cell_bin', 'cell_build'}
+                           'cell_bin', 'cell_build', 'brute_build'}
