@@ -17,7 +17,11 @@ planes, 10 on full planes, 4 with bfloat16 Y operands.  The cell-list
 kernels (``csrc/cell_list.cu``: the neighbor build of the MD device loop)
 are held against their plain version bitwise in float64 and float32 at
 snap-2j8 (skin 0.4 A, 52-wide lists), against the host build's pair sets,
-in an overflow case and in a gated call with trigger 0.  Then this slice's
+in an overflow case, on positions with signed zeros (atoms at +0.0 and
+-0.0, two at one place, one 2.5 boxes out) and in a gated call with
+trigger 0 (its device time over 400 calls); 20 steps of the device loop's
+chunk on them (skin 0.01 A, rebuilds firing) are bitwise equal to the same
+steps on their plain versions in float64 and float32.  Then this slice's
 main path, ``run_nve(loop='device', impl='kernel')`` (half planes, float64,
 skin 0.4 A, max_nbors 40, 300 K), runs 20 steps in chunks of 10 with the
 counters set to 0 before and read after, is timed again and profiled; one
@@ -200,6 +204,13 @@ last two lines are one JSON object per kernel
 (``{"kernels": [...]}``) and the result line; any failed check exits
 nonzero without the result line.  Without a card it exits nonzero and
 prints no result.
+
+    python3 chip_smoke.py --neighbors
+
+runs the neighbor builds' checks and times alone (build, ``ptxas``, the
+cell kernels, the device loop on them against the plain build, the brute
+build on both buckets and the edge-case batch) in about a minute, and
+exits nonzero if a check failed.
 """
 
 import collections
@@ -350,6 +361,7 @@ HBM_TBS = 3.35               # TB/s, H100 SXM data sheet
 SMS = 132                    # H100 SXM
 STACK_MAX = 1024             # bytes of stack frame a fused dE kernel may use
 DEVICE_REPS = 20             # K of device_ms
+GATED_REPS = 400             # K of device_ms for a ~2 us gated launch
 SPIN_CYCLES = int(2e8)       # ~0.1 s of spin ahead of the K calls
 FAILURES = []
 
@@ -456,9 +468,9 @@ def ptxas_phase(built):
           f'{sorted(set(v.get("spill_stores") for v in y.values()))} B')
     nbr = {k: v for k, v in report.items()
            if any(f'{n}_kernel' in k for n in NEIGHBOR)}
-    check(len(nbr) == 6,
+    check(len(nbr) == 8,
           f'ptxas: {len(nbr)} neighbor kernels (cell bin, cell build, brute '
-          'build x f32, f64), '
+          'build with 1 and 2 atoms a warp x f32, f64), '
           + ', '.join(f'{k}: {v["registers"]} registers, {v.get("stack")} B '
                       'stack' for k, v in sorted(nbr.items())))
     return report
@@ -838,6 +850,17 @@ def md_phase(cfg, beta, pos, box, dev, path, steps, dtype):
     return counts, thermo
 
 
+def signed_zero_positions(pos, box):
+    """snap-2j8's positions with signed zeros where the minimum image must
+    keep the division's bits: atoms 0 and 1 at +0.0 and -0.0, atoms 2 and
+    3 at one place, -0.0 coordinates on atom 4, atom 5 2.5 boxes out."""
+    z = np.array(pos, dtype=np.float64)
+    z[0], z[1], z[3] = 0.0, -0.0, z[2]
+    z[4, [0, 2]] = -0.0
+    z[5] += 2.5 * np.asarray(box)
+    return z
+
+
 def device_grid(pos, box, skin=SKIN):
     """The device loop's grid at snap-2j8: run_nve's own sizing (cell_cap
     from the initial lattice, max_nbors scaled to the rcut + skin shell)."""
@@ -886,6 +909,17 @@ def neighbor_phase(pos, box, dev, dtype):
           and fl[0] > small.max_nbors and fl[1] > small.cell_cap,
           f'neighbors {dt} overflow (cell_cap 8, K 12): flags {fl} equal to '
           f'the plain version\'s {over_p[3].tolist()}, lists equal')
+    # signed zeros: atoms at +0.0 and -0.0, two at one place, -0.0
+    # coordinates, an atom 2.5 boxes out (the minimum image's division)
+    zpos = signed_zero_positions(pos, box)
+    z_t = torch.as_tensor(zpos, dtype=dtype, device=dev)
+    z_k = cl.device_neighbors(z_t, box_t, grid)
+    z_p = kn.neighbors_plain(z_t, box_t, grid)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(z_k, z_p)),
+          f'neighbors {dt} signed zeros: kernel vs plain bitwise equal on '
+          f'nbr_idx, mask, shifts (signs of zero included) and flags '
+          f'(flags {z_k[3].tolist()})')
     bufs = dict(nbr_idx=got[0].clone(), shifts=got[2].clone(),
                 mask=got[1].clone(), pos_ref=pos_t.clone(),
                 flags=torch.zeros(6, dtype=torch.int32, device=dev))
@@ -949,6 +983,10 @@ def neighbor_phase(pos, box, dev, dtype):
             2 * N * 3 * esz + 3 * esz + table_p.numel() * 4
             + N * K * (4 + 1 + 3 * esz) + 8, 20 * cand),
     }
+    gated = {   # trigger 0: the launch of a step that does not rebuild
+        'cell_bin': lambda: kn.cell_bin(pos_t, box_t, grid, zero, flags_k),
+        'cell_build': lambda: kn.cell_build(pos_t, box_t, grid, table_p,
+                                            zero, *out_k)}
     stats = {}
     for name, (kern, plain, got_t, ref_t, nb, flops) in cases.items():
         same = all(torch.equal(a, b) for a, b in zip(got_t, ref_t))
@@ -958,9 +996,11 @@ def neighbor_phase(pos, box, dev, dtype):
               f'inputs (max abs err {abs_err:.3e})')
         ms, plain_ms = time_ms(kern), time_ms(plain, reps=10)
         dev_ms, hidden = device_ms(kern)
+        gated_ms, _ = device_ms(gated[name], k=GATED_REPS)
         b_ms, b_by = bound(nb, flops, dtype)
         print(f'     {name} {dt}: {ms:.4f} ms per call, {dev_ms:.4f} ms '
-              f'device{"" if hidden else " (host time leaked in)"} (plain '
+              f'device{"" if hidden else " (host time leaked in)"}, '
+              f'{gated_ms * 1e3:.2f} us device a gated launch (plain '
               f'{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by}; '
               f'{flops / 1e6:.2f} MFLOP, {nb / 1e6:.3f} MB, {cand} '
               'candidate pairs)', flush=True)
@@ -968,6 +1008,7 @@ def neighbor_phase(pos, box, dev, dtype):
                            else float('inf'), ms=ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=None,
                            device_ms=dev_ms, device_ms_hidden=hidden,
+                           gated_device_ms=gated_ms,
                            library_device_ms=None)
     return stats
 
@@ -1108,6 +1149,61 @@ def device_loop_phase(cfg, beta, pos, box, dev):
     return counts, thermo
 
 
+def device_loop_bitwise(cfg, beta, pos, box, dev):
+    """20 steps of the device loop's chunk (two chunks of 10, skin 0.01 A so
+    that rebuilds fire) on the cell kernels, against the same chunks with
+    md/cell_list's cell_bin and cell_build swapped for their plain versions,
+    in float64 and float32: positions, velocities, forces, energies, lists,
+    pos_ref and flags bitwise equal, and the kernel run launched cell_build
+    once a step."""
+    from repro_torch.kernels import neighbors as kn
+    from repro_torch.kernels import ops
+    from repro_torch.md import cell_list as cl
+    from repro_torch.md.integrate import (W_MASS, _full_flags, _seed_force,
+                                          init_velocities,
+                                          make_device_chunk_fn,
+                                          make_force_fn)
+    vel = init_velocities(NATOMS, 300.0)
+    grid = device_grid(pos, box, SMALL_SKIN)
+    for dtype in (torch.float64, torch.float32):
+        force_fn = make_force_fn(cfg, beta, 0.0, 'kernel', device=dev,
+                                 dtype=dtype)
+        chunk = make_device_chunk_fn(cfg, 0.0005, W_MASS, grid, force_fn,
+                                     DEVICE_LOG)
+
+        def run():
+            p, v, b = (torch.tensor(a, dtype=dtype, device=dev)
+                       for a in (pos, vel, box))
+            ni, ms, sh, fl = cl.device_neighbors(p, b, grid)
+            _, f = _seed_force(force_fn, cfg, p, ni, sh, ms)
+            carry, rows, rebuilt = (p, v, f, ni, sh, ms, p,
+                                    _full_flags(fl)), [], 0
+            for _ in range(DEVICE_STEPS // DEVICE_LOG):
+                out = chunk(*carry[:3], b, *carry[3:], 0.0)
+                carry = out[:3] + out[3:8]
+                rows.append(out[8])
+                rebuilt += int(out[9])
+            torch.cuda.synchronize()
+            return carry + (torch.cat(rows),), rebuilt
+        ops.reset_launch_counts()
+        got, rebuilt = run()
+        launched = ops.launch_counts()['cell_build']
+        with mock.patch.object(cl, 'cell_bin', kn.cell_bin_plain), \
+                mock.patch.object(cl, 'cell_build', kn.cell_build_plain):
+            want, rebuilt_p = run()
+        names = ('pos', 'vel', 'forces', 'nbr_idx', 'shifts', 'mask',
+                 'pos_ref', 'flags', 'energies')
+        diff = [n for n, a, b in zip(names, got, want)
+                if not torch.equal(a, b)]
+        check(not diff and rebuilt == rebuilt_p > 0
+              and launched == DEVICE_STEPS + 1,
+              f'device loop {str(dtype)[6:]}, skin {SMALL_SKIN} A: '
+              f'{DEVICE_STEPS} steps on the cell kernels ({rebuilt} rebuilds, '
+              f'{launched} cell_build launches incl. the seed build) bitwise '
+              f'equal to the same steps on the plain cell build in '
+              f'{", ".join(names)} (differ: {diff or "none"})')
+
+
 def device_loop_profile(cfg, beta, state, cache, kw):
     """Device time and busy share of the device loop (torch.profiler over
     one more 20-step run with the chunk function cached)."""
@@ -1175,6 +1271,13 @@ def serve_batches(table, dev):
     return out
 
 
+def plain_brute_build(*args, out=None):
+    """The plain build in the kernel wrapper's place (a batched step passes
+    its own outputs; the plain version returns new ones)."""
+    from repro_torch.kernels import neighbors as kn
+    return kn.brute_build_plain(*args)
+
+
 def serve_neighbor_checks(batches, dev):
     """The batched brute build on the card: the kernel's four outputs
     bitwise against its plain version on the card and on the CPU (float64
@@ -1235,7 +1338,7 @@ def serve_neighbor_checks(batches, dev):
             ops.reset_launch_counts()
             e_k, f_k, fl_k = fn(**a)
             kernel_launches = ops.launch_counts()['brute_build']
-            with mock.patch.object(cl, 'brute_build', kn.brute_build_plain):
+            with mock.patch.object(cl, 'brute_build', plain_brute_build):
                 e_p, f_p, fl_p = fn(**a)
             torch.cuda.synchronize()
             plain_launches = ops.launch_counts()['brute_build'] - \
@@ -1282,7 +1385,7 @@ def serve_kernel_checks(batches, dev):
                     mock.patch.object(core_snap, 'assemble_forces_csr',
                                       assemble_forces_csr_plain), \
                     mock.patch.object(cl, 'brute_build',
-                                      kn.brute_build_plain):
+                                      plain_brute_build):
                 e_p, f_p, fl_p = fn(**a)
             plain_launches = sum(ops.launch_counts().values())
             _, err_f = rel_err(f_k, f_p)
@@ -1560,7 +1663,10 @@ def open_loop(table, dev, n, rate, bad, tag, journal=None):
 def brute_timing(bucket, a):
     """The brute build alone on a packed batch ``a`` of ``bucket``, kernel
     and plain version, on its float64 positions and on the same positions
-    in float32: {dtype: numbers of the kernels line}.  The bound: positions,
+    in float32: {dtype: numbers of the kernels line}; ``ms`` per call into
+    outputs kept from call to call (``brute_outputs``, as a bucket's step
+    calls it; an older package without them allocates), ``ms_outputs_made``
+    with outputs made at the call.  The bound: positions,
     boxes and counts read once, lists, masks, displacements and flags
     written once; 20 operations (3 sub, 3 div, 3 rint, 3 mul, 3 sub, 5 for
     r2, 1 compare) a pair the kernel tests, each valid atom of a lane
@@ -1568,6 +1674,7 @@ def brute_timing(bucket, a):
     from repro_torch.kernels import neighbors as kn
     n_valid = a['n_valid'].tolist()
     pairs = sum(n * (n - 1) for n in n_valid)
+    dev = a['pos'].device
     brute = {}
     for dtype in (torch.float64, torch.float32):
         args = (a['pos'].to(dtype), a['box'].to(dtype), RCUT,
@@ -1579,14 +1686,21 @@ def brute_timing(bucket, a):
                       for g, r in zip(got, ref))
         nb = nbytes(*args[:2], args[4], *got)
         b_ms, b_by = bound(nb, 20 * pairs, dtype)
-        ms = time_ms(lambda: kn.brute_build(*args))
+        # per call as a bucket's step calls it: into the outputs it keeps
+        # (brute_outputs), and with outputs made at the call
+        out = (kn.brute_outputs(*got[0].shape[:2], args[3], dtype, dev)
+               if hasattr(kn, 'brute_outputs') else None)
+        kern = ((lambda: kn.brute_build(*args, out=out)) if out is not None
+                else (lambda: kn.brute_build(*args)))
+        ms, ms_made = time_ms(kern), time_ms(lambda: kn.brute_build(*args))
         plain_ms = time_ms(lambda: kn.brute_build_plain(*args), reps=5)
-        dev_ms, hidden = device_ms(lambda: kn.brute_build(*args), k=5)
+        dev_ms, hidden = device_ms(kern, k=5)
         plain_dev, plain_hidden = device_ms(
             lambda: kn.brute_build_plain(*args), k=5)
         dt = str(dtype)[6:]
         print(f'     brute_build n{bucket.n_pad} {dt} ({SERVE_BATCH} lanes, '
-              f'n_valid {n_valid}): {ms:.4f} ms per call, {dev_ms:.4f} ms '
+              f'n_valid {n_valid}): {ms:.4f} ms per call ({ms_made:.4f} with '
+              f'its outputs made at the call), {dev_ms:.4f} ms '
               f'device{"" if hidden else " (host time leaked in)"}; plain '
               f'{plain_ms:.4f} ms per call, {plain_dev:.4f} ms device; bound '
               f'{b_ms:.5f} ms by {b_by} ({pairs} pairs, {nb / 1e6:.3f} MB); '
@@ -1597,6 +1711,7 @@ def brute_timing(bucket, a):
                             device_ms=dev_ms, device_ms_hidden=hidden,
                             plain_device_ms=plain_dev,
                             plain_device_ms_hidden=plain_hidden,
+                            ms_outputs_made=ms_made,
                             library_device_ms=None, pairs=pairs)
     return brute
 
@@ -3405,6 +3520,28 @@ def mesh_phase(dev, train=None, dry=None):
     return numbers
 
 
+def neighbor_checks(dev):
+    """``--neighbors``: the neighbor builds alone (the cell kernels at
+    snap-2j8 in both dtypes, the device loop on them against the plain
+    build, the brute build on both serving buckets and the edge-case batch,
+    the batched evaluation on its lists, its times on both buckets).
+    Returns an exit code."""
+    from repro_torch.kernels import _build
+    print(f'card: {card_identity()}; torch {torch.__version__}', flush=True)
+    ptxas_phase(_build.build())
+    cfg, beta, pos, box, *_ = setup(8, dev)
+    for dtype in (torch.float64, torch.float32):
+        neighbor_phase(pos, box, dev, dtype)
+    device_loop_bitwise(cfg, beta, pos, box, dev)
+    batches = serve_batches(default_serve_table(), dev)
+    serve_neighbor_checks(batches, dev)
+    for bucket, a in batches.values():
+        brute_timing(bucket, a)
+    print(f'chip_smoke --neighbors: {len(FAILURES)} check(s) failed',
+          flush=True)
+    return 1 if FAILURES else 0
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
@@ -3413,6 +3550,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False   # no kernel here uses a
     torch.backends.cudnn.allow_tf32 = False         # matmul; stated anyway
     dev = torch.device('cuda', 0)
+    if sys.argv[1:] == ['--neighbors']:
+        return neighbor_checks(dev)
     with tempfile.TemporaryDirectory() as tmp:
         dry = start_dryruns(tmp)
         try:
@@ -3453,6 +3592,7 @@ def run_phases(dev, dry):
     for dtype in (torch.float64, torch.float32):
         stats[dtype].update(neighbor_phase(pos, box, dev, dtype))
     runs['device'] = device_loop_phase(cfg, beta, pos, box, dev)
+    device_loop_bitwise(cfg, beta, pos, box, dev)
     sharded_counts, sharded_numbers = sharded_phase(
         cfg, beta, pos, box, nbr_idx, mask, disp, dev, runs['device'][1])
     serve_counts, serve_numbers, y_lanes, brute = serve_phase(dev)

@@ -8,7 +8,8 @@ sources and flags, so an edited source is rebuilt and a stale library is
 never loaded.  A failed build raises with the compiler's output.
 
 Every exported function returns the ``cudaError_t`` of its launch; the
-wrappers call :func:`launch`, which raises when it is not 0, and then
+wrappers call :func:`launch` (or :func:`launcher`'s bound function, where
+the wrapper's host time counts), which raises when it is not 0, and then
 report it with ``analysis.launches.record``, which adds one to the kernel's
 entry of :data:`LAUNCHES`.  ``-Xptxas -v``'s report is kept
 beside each library (``.log``); :func:`ptxas_report` reads each kernel's
@@ -151,6 +152,25 @@ def query(source: str, symbol: str, argtypes: tuple, *args) -> None:
                            f'({err_string(code).decode()})')
 
 
+@lru_cache(maxsize=None)
+def launcher(source: str, symbol: str, argtypes: tuple):
+    """``run(device, *args)``: call ``symbol`` of library ``source`` on
+    PyTorch's current stream of CUDA device ``device`` (an index) and raise
+    on a CUDA error.  ``args`` are already plain: device pointers as ints
+    (``data_ptr()``), ints and floats.  For wrappers whose host time
+    counts: the function, its argument types and the stream query are
+    bound once."""
+    fn, err_string = _function(source, symbol, tuple(argtypes) + (I, P))
+    raw_stream = torch._C._cuda_getCurrentRawStream
+
+    def run(device, *args):
+        code = fn(*args, device, raw_stream(device))
+        if code != 0:
+            raise RuntimeError(f'{symbol}: CUDA error {code} '
+                               f'({err_string(code).decode()})')
+    return run
+
+
 def launch(source: str, symbol: str, argtypes: tuple, *args) -> None:
     """Call ``symbol`` of library ``source`` and raise on a CUDA error.
 
@@ -159,13 +179,9 @@ def launch(source: str, symbol: str, argtypes: tuple, *args) -> None:
     The launch goes to PyTorch's current stream on the first tensor's
     device, which the C function also makes its current device.
     """
-    fn, err_string = _function(source, symbol, tuple(argtypes) + (I, P))
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    stream = torch.cuda.current_stream(dev).cuda_stream
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
-    code = fn(*conv, dev.index if dev.index is not None
-              else torch.cuda.current_device(), stream)
-    if code != 0:
-        raise RuntimeError(f'{symbol}: CUDA error {code} '
-                           f'({err_string(code).decode()})')
+    launcher(source, symbol, tuple(argtypes))(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        *conv)

@@ -23,7 +23,8 @@ step builds the lists of all its lanes with one more kernel:
 - :func:`brute_build` — ``brute_neighbors_device`` of every lane of a
   batch at once: each atom below its lane's ``n_valid`` against every
   other, valid pairs packed to the front in index order, the lane's
-  largest count in its row of ``flags``.
+  largest count in its row of ``flags``; into :func:`brute_outputs` kept
+  by the caller (a bucket's step), or into outputs made at the call.
 
 Each wrapper runs its plain PyTorch version (``*_plain``: the reference's
 arithmetic as torch ops; the cell versions read ``trigger`` on the host)
@@ -54,6 +55,8 @@ _BIN_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
 _BUILD_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                _D)
 _BRUTE_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D)
+_BRUTE_SYMBOL = {torch.float32: 'brute_build_f32',
+                 torch.float64: 'brute_build_f64'}
 
 
 @lru_cache(maxsize=64)
@@ -303,39 +306,80 @@ def cell_build(pos, box, grid, table, trigger, nbr_idx, mask, shifts, flags,
     launches.record('cell_build', (pos, box, table, trigger), None, **meta)
 
 
-def brute_build(pos, box, rcut, max_nbors: int, n_valid):
+class BruteLists(tuple):
+    """``(nbr_idx [B, N, K] int32, mask [B, N, K] bool, disp [B, N, K, 3],
+    flags [B, 2] int32)`` of :func:`brute_build`, with the ``shape`` (B,
+    N, K), ``dtype`` and ``device`` they were made for."""
+
+    def __new__(cls, tensors, shape, dtype, device):
+        self = super().__new__(cls, tensors)
+        self.shape, self.dtype, self.device = shape, dtype, device
+        return self
+
+
+def brute_outputs(B: int, N: int, max_nbors: int, dtype, device):
+    """Unwritten :class:`BruteLists` for ``B`` lanes of ``N`` atoms, K =
+    min(max_nbors, N).  A caller that builds one bucket's lists at every
+    step makes them once and passes them to :func:`brute_build` as
+    ``out``: then a step neither allocates nor checks them again."""
+    K = min(int(max_nbors), N)
+    out = (torch.empty((B, N, K), dtype=torch.int32, device=device),
+           torch.empty((B, N, K), dtype=torch.bool, device=device),
+           torch.empty((B, N, K, 3), dtype=dtype, device=device),
+           torch.empty((B, 2), dtype=torch.int32, device=device))
+    return BruteLists(out, (B, N, K), dtype, out[0].device)
+
+
+def brute_build(pos, box, rcut, max_nbors: int, n_valid, out=None):
     """The O(N^2) lists of B configurations in one launch: ``pos`` [B, N, 3]
     float32/float64, ``box`` [B, 3] and ``n_valid`` [B] (integers, read on
     the device) on one device; atoms at or past a lane's ``n_valid`` have no
     pairs.  Returns ``(nbr_idx [B, N, K] int32, mask [B, N, K] bool, disp
     [B, N, K, 3], flags [B, 2] int32)`` with K = min(max_nbors, N), the
     pairs within ``rcut`` (a Python number) packed to the front in index
-    order and ``flags[:, 0]`` each lane's largest count (past K)."""
+    order and ``flags[:, 0]`` each lane's largest count (past K).  ``out``
+    (:func:`brute_outputs` of these shapes): written in place and
+    returned."""
     if isinstance(pos, torch.Tensor):
         box = torch.as_tensor(box, dtype=pos.dtype, device=pos.device)
         n_valid = torch.as_tensor(n_valid, device=pos.device)
     _check_pos(pos, box, 3)
     (B, N, _), dev = pos.shape, pos.device
-    if tuple(n_valid.shape) != (B,) or \
+    if n_valid.shape != (B,) or \
             n_valid.dtype not in (torch.int32, torch.int64):
         raise ValueError(f'n_valid must be an integer [{B}] tensor, got '
                          f'{n_valid.dtype} {tuple(n_valid.shape)}')
+    K = min(int(max_nbors), N)
+    if out is not None and not (type(out) is BruteLists
+                                and out.shape == (B, N, K)
+                                and out.dtype == pos.dtype
+                                and out.device == dev):
+        raise ValueError(f'out must be brute_outputs({B}, {N}, {K}, '
+                         f'{pos.dtype}, {dev})')
     meta = dict(lanes=B * N, pairs=B * N * N)
     if dev.type == 'cpu':
-        return launches.plain('brute_build', (pos, box, n_valid), meta,
-                              brute_build_plain, pos, box, rcut, max_nbors,
-                              n_valid)
+        got = launches.plain('brute_build', (pos, box, n_valid), meta,
+                             brute_build_plain, pos, box, rcut, max_nbors,
+                             n_valid)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return out
     _kernel_device(pos, 'brute_build')
-    n_valid = n_valid.to(torch.int32).contiguous()
-    K = min(int(max_nbors), N)
-    out = (torch.empty((B, N, K), dtype=torch.int32, device=dev),
-           torch.empty((B, N, K), dtype=torch.bool, device=dev),
-           torch.empty((B, N, K, 3), dtype=pos.dtype, device=dev),
-           torch.zeros((B, 2), dtype=torch.int32, device=dev))
-    # the f32 instance rounds rcut * rcut (a double) to float, as PyTorch
-    # rounds the Python scalar it compares an f32 tensor with
-    _build.launch('brute_neighbors', f'brute_build_{_sfx(pos.dtype)}',
-                  _BRUTE_ARGS, pos, box, n_valid, *out, B, N, K,
-                  float(rcut) * float(rcut))
+    if n_valid.dtype != torch.int32 or not n_valid.is_contiguous():
+        n_valid = n_valid.to(torch.int32).contiguous()
+    if out is None:
+        out = brute_outputs(B, N, K, pos.dtype, dev)
+    # the launcher zeroes flags on the stream; the f32 instance rounds
+    # rcut * rcut (a double) to float, as PyTorch rounds the Python scalar
+    # it compares an f32 tensor with
+    rc = float(rcut)
+    _build.launcher('brute_neighbors', _BRUTE_SYMBOL[pos.dtype],
+                    _BRUTE_ARGS)(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        pos.data_ptr(), box.data_ptr(), n_valid.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        out[3].data_ptr(), B, N, K, rc * rc)
     launches.record('brute_build', (pos, box, n_valid), out, **meta)
     return out

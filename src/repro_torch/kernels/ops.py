@@ -352,6 +352,7 @@ def make_batched_force_fn(cfg: SnapConfig, n_pad: int, max_nbors: int,
     from ..md.cell_list import (FLAG_CELL_MAX, FLAG_NAN_FORCE,
                                 FLAG_NAN_STATE, FLAG_NBR_MAX, N_FLAGS,
                                 brute_neighbors_batched)
+    from .neighbors import brute_outputs
     if impl not in ('kernel', 'adjoint'):
         raise ValueError(f"unknown impl {impl!r}; choose 'kernel' or "
                          "'adjoint'")
@@ -364,6 +365,7 @@ def make_batched_force_fn(cfg: SnapConfig, n_pad: int, max_nbors: int,
         _check_options(layout, mxu_dtype)
     lane_atoms = -(-n_pad // LANES) * LANES
     record_trace(trace_counter)
+    lists = {}   # the card's neighbor lists a shape, rewritten each call
 
     def fn(pos, box, beta, beta0, n_valid):
         pos, box, beta, beta0 = (torch.as_tensor(v, device=device)
@@ -372,8 +374,15 @@ def make_batched_force_fn(cfg: SnapConfig, n_pad: int, max_nbors: int,
         B = pos.shape[0]
         ok_atom = (torch.arange(n_pad, device=device)[None, :]
                    < n_valid[:, None])
+        out = None
+        if pos.device.type == 'cuda':
+            key = (B, pos.shape[1], pos.dtype)
+            out = lists.get(key)
+            if out is None:
+                out = lists[key] = brute_outputs(B, pos.shape[1], max_nbors,
+                                                 pos.dtype, pos.device)
         nbr_idx, mask, disp, bflags = brute_neighbors_batched(
-            pos, box, cfg.rcut, max_nbors, n_valid)
+            pos, box, cfg.rcut, max_nbors, n_valid, out)
         nan_state = ~torch.isfinite(torch.where(
             ok_atom[..., None], pos, 0.0)).flatten(1).all(dim=1)
         if impl == 'kernel':

@@ -199,7 +199,8 @@ def brute_neighbors_device(pos, box, rcut, max_nbors: int, n_valid=None):
     return tuple(t[0] for t in out)
 
 
-def brute_neighbors_batched(pos, box, rcut, max_nbors: int, n_valid):
+def brute_neighbors_batched(pos, box, rcut, max_nbors: int, n_valid,
+                            out=None):
     """The O(N^2) build of B configurations at once (the reference builds it
     as ``jax.vmap`` of its one-lane jnp build): one launch of the
     ``brute_build`` kernel on the card, its plain version on the CPU
@@ -210,9 +211,11 @@ def brute_neighbors_batched(pos, box, rcut, max_nbors: int, n_valid):
     read back to the host.  r^2 is (x^2 + y^2) + z^2 and the valid pairs
     are packed to the front of each row in index order, as the reference's
     stable sort packs them.  Returns ``(nbr_idx [B, N, K] int32, mask [B,
-    N, K] bool, disp [B, N, K, 3], flags [B, 2] int32)``.
+    N, K] bool, disp [B, N, K, 3], flags [B, 2] int32)``, written into
+    ``out`` when it is given
+    (:func:`repro_torch.kernels.neighbors.brute_outputs`).
     """
-    return brute_build(pos, box, rcut, max_nbors, n_valid)
+    return brute_build(pos, box, rcut, max_nbors, n_valid, out=out)
 
 
 def check_flags(flags, grid: CellGrid):

@@ -16,7 +16,12 @@ where a kernel that rounded otherwise would split from the plain version:
   puts it out), a NaN in the padding;
 - lane 2: ``n_valid = 0`` (an inert lane, as ``pack_batch`` fills);
 - lane 3 (``n_valid = N - 4``, box 2.5): every valid atom sees all the
-  others, more than ``EDGE_K``.
+  others, more than ``EDGE_K``; among them signed zeros, where the
+  minimum image must keep the division's bits: atoms 0 and 1 at +0.0 and
+  -0.0 (d = -0.0 one way, +0.0 the other; d - box * rint(d / box) is
+  +0.0 both ways), atoms 2 and 3 at one place (d = +0.0), atom 4 with
+  -0.0 coordinates, and atom 5 more than 1.5 boxes out (rint of 2 and
+  3: the division itself decides).
 
 The CPU tests hold the plain version against the reference on it, and
 ``chip_smoke.py`` the kernel against the plain version on the card.
@@ -81,5 +86,9 @@ def brute_edge_batch(dtype=np.float64, seed=0):
     pos[1, N - 1, 0] = np.nan                   # padding
     pos[2] = rng.uniform(0.0, HALF_BOX, (N, 3))
     pos[3] = rng.uniform(0.0, DENSE_BOX, (N, 3))
+    pos[3, :6] = [[0.0, 0.0, 0.0], [-0.0, -0.0, -0.0], [1.1, 0.7, 2.2],
+                  [1.1, 0.7, 2.2], [-0.0, 1.25, -0.0],
+                  [0.4 + 2 * DENSE_BOX, 0.9 - 2 * DENSE_BOX,
+                   1.0 + 3 * DENSE_BOX]]
     n_valid = np.array([N, N - 3, 0, N - 4], np.int32)
     return pos.astype(dtype), box.astype(dtype), n_valid

@@ -13,7 +13,10 @@ one axis (``rint`` of +-0.5), pairs whose r^2 is rcut^2 exactly and just
 below it after rounding, a pair that is in only when r^2 is rounded a
 step at a time (no FMA), a NaN coordinate on a valid atom, a lane with
 ``n_valid = 0`` and one with ``n_valid = N``, and a lane whose atoms see
-more than K neighbors.
+more than K neighbors; and signed zeros (atoms at +0.0 and -0.0, two atoms
+at one place, an atom more than 1.5 boxes out), where the kernel's minimum
+image, which skips the division where rint's value is certain, must give
+the division's bits, the sign of a zero included.
 """
 import jax
 import jax.numpy as jnp
@@ -116,6 +119,25 @@ def test_plain_edge_cases(edge_case):
     assert not np.signbit(disp[~m]).any() and (disp[~m] == 0).all()
 
 
+def test_plain_signed_zeros_match_reference(edge_case):
+    """Lane 3's signed zeros: d = -0.0 and +0.0 give a +0.0 displacement
+    (-0.0 - box * rint(-0.0 / box) is +0.0), as in the reference, bit for
+    bit over the whole batch; the atom 1.5 boxes out gets its minimum
+    image."""
+    dtype, args, (ni, m, disp, _) = edge_case
+    ref = _reference(*args)
+    assert np.array_equal(np.signbit(disp), np.signbit(ref[2]))
+    assert np.array_equal(disp.view(np.uint8), ref[2].view(np.uint8))
+
+    def d(i, j):
+        return disp[3, i, list(ni[3, i, m[3, i]]).index(j)]
+    for i, j in ((0, 1), (1, 0), (2, 3), (3, 2)):
+        assert (d(i, j) == 0).all() and not np.signbit(d(i, j)).any()
+    assert not np.signbit(d(0, 4)[0]) and not np.signbit(d(4, 0)[0])
+    np.testing.assert_allclose(d(0, 5), [0.4, 0.9, 1.0], rtol=0,
+                               atol=BARS[dtype] * 10)
+
+
 def test_batched_build_dispatches_to_plain_on_the_cpu():
     """``brute_neighbors_batched`` is ``brute_build``, which on a CPU tensor
     is its plain version, recorded as one launch of the kernel."""
@@ -127,6 +149,26 @@ def test_batched_build_dispatches_to_plain_on_the_cpu():
     assert rec.records[0].meta['pairs'] == 4 * N * N
     want = tkn.brute_build_plain(pos, box, RCUT, K, n_valid)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_brute_build_writes_into_bucket_outputs():
+    """``out`` from ``brute_outputs`` is written in place and returned (a
+    bucket's steps allocate nothing); outputs of other shapes are
+    refused."""
+    pos, box, n_valid = (torch.as_tensor(a)
+                         for a in brute_edge_batch(np.float64))
+    out = tkn.brute_outputs(4, N, K, torch.float64, 'cpu')
+    assert isinstance(out, tkn.BruteLists) and out.shape == (4, N, K)
+    want = tkn.brute_build_plain(pos, box, RCUT, K, n_valid)
+    for _ in range(2):
+        got = tkn.brute_build(pos, box, RCUT, K, n_valid, out=out)
+        assert got is out
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for bad in (tkn.brute_outputs(4, N, K - 1, torch.float64, 'cpu'),
+                tkn.brute_outputs(4, N, K, torch.float32, 'cpu'),
+                tuple(out)):
+        with pytest.raises(ValueError, match='out must be brute_outputs'):
+            tkn.brute_build(pos, box, RCUT, K, n_valid, out=bad)
 
 
 def test_brute_build_raises_off_cpu_and_cuda():

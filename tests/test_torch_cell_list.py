@@ -91,6 +91,34 @@ def test_device_neighbors_match_reference(natoms, skin, bins):
         assert set(ni_t[i, m_t[i]]) == set(b_idx[i, b_mask[i]])
 
 
+@pytest.mark.parametrize('natoms,skin', [(54, 1.0), (128, 1.0)])
+def test_device_neighbors_signed_zeros_match_reference(natoms, skin):
+    """Atoms at +0.0 and -0.0, two atoms at one place, -0.0 coordinates and
+    an atom 2.5 boxes out: the shifts -box * round(d / box) keep the
+    reference's bits, the sign of a zero included (the cell kernel's
+    minimum image skips the division and must give these bits)."""
+    pos, box = _lattice(natoms, seed=5)
+    pos[0] = 0.0
+    pos[1] = -0.0
+    pos[3] = pos[2]
+    pos[4, [0, 2]] = -0.0
+    pos[5] += 2.5 * box
+    g_r, g_t = _grids(pos, box, 4.7, skin)
+    (ni_r, m_r, sh_r, fl_r), (ni_t, m_t, sh_t, fl_t) = _both(pos, box, g_r,
+                                                             g_t)
+    np.testing.assert_array_equal(ni_t, ni_r)
+    np.testing.assert_array_equal(m_t, m_r)
+    np.testing.assert_array_equal(fl_t, fl_r)
+    assert np.array_equal(sh_t.view(np.uint64), sh_r.view(np.uint64))
+    # d = -0.0 (atom 1 seen from atom 0) shifts by +0.0, d = +0.0 by -0.0
+    k = list(ni_t[0, m_t[0]]).index(1)
+    assert (sh_t[0, k] == 0).all() and not np.signbit(sh_t[0, k]).any()
+    k = list(ni_t[1, m_t[1]]).index(0)
+    assert (sh_t[1, k] == 0).all() and np.signbit(sh_t[1, k]).all()
+    assert 3 in ni_t[2, m_t[2]] and 2 in ni_t[3, m_t[3]]
+    assert m_t[5].any()   # the atom out of the box has its neighbors
+
+
 def test_overflow_flags_and_errors_match_reference():
     pos, box = _lattice(250)
     g_r, g_t = _grids(pos, box, 4.0, 0.4, cell_cap=3, max_nbors=6)
