@@ -5,8 +5,9 @@
 
 Builds every hand-written CUDA kernel of the port from
 ``src/repro_torch/kernels/csrc`` (U, Y and fused dE on half and on full
-planes, the bfloat16 Y operand option, and the deterministic force
-assembly), holds each one against its plain PyTorch version at the paper's
+planes, the bfloat16 Y operand option, the by-destination index and the
+deterministic force assembly), holds each one against its plain PyTorch
+version (the index bitwise) at the paper's
 snap-2j8 size (2000 bcc W atoms x 26 neighbors, 2J = 8) in float32 and
 float64, holds the half, full and bfloat16 pipelines against their plain
 pipelines and the float64 adjoint, checks that two evaluations give equal
@@ -208,9 +209,28 @@ prints no result.
     python3 chip_smoke.py --neighbors
 
 runs the neighbor builds' checks and times alone (build, ``ptxas``, the
-cell kernels, the device loop on them against the plain build, the brute
-build on both buckets and the edge-case batch) in about a minute, and
-exits nonzero if a check failed.
+cell kernels, ``cell_bin`` bitwise in every case of ``cell_bin_cases``,
+the device loop on them against the plain build, the brute build on both
+buckets and the edge-case batch) in about a minute, and exits nonzero if
+a check failed.
+
+    python3 chip_smoke.py --assembly
+
+runs the force assembly's and ``cell_bin``'s checks and times alone: the
+by-destination index's kernels bitwise against the plain
+``destination_csr`` (snap-2j8's 26-wide lists, the device loop's 52-wide
+ones, both serving buckets' lane-offset lists with sentinels, both ranks'
+offset rows, a 16,000-atom box, atoms named 126 and 626 times, n_out 1,
+every pair masked), the assembly against its plain version at the bars
+above on the fused dE planes' view and on a contiguous copy (bitwise the
+view's), twice bitwise and with a NaN in a masked slot, ``cell_bin``
+bitwise; then the times of the stretch from the fused dE planes to the
+forces (per call, device, device operations), of the two kernels, of
+``index_add_`` and of ``cell_bin`` (2000 and 16,000 atoms, gated), the
+half f64 profile's stretch and the device loop's ms a step, as one
+``assembly: {...}`` line.  The times use entry points an older tree has
+too: copied into an older tree, it times that tree's package (and skips
+the checks), for A/B runs parent / change / change / parent in one call.
 """
 
 import collections
@@ -257,7 +277,10 @@ KERNELS = {   # name: (source, pl.pallas_call site it replaces)
     'snap_y_full': (CSRC + 'snap_y.cu', 'src/repro/kernels/snap_y.py:148'),
     'snap_fused_de_full': (CSRC + 'snap_fused_de.cu',
                            'src/repro/kernels/snap_fused_de.py:148'),
-    # jnp scatter in the reference, no Pallas kernel
+    # jnp scatter in the reference, no Pallas kernel: the by-destination
+    # index (a counting sort) and the assembly on it
+    'destination_csr': (CSRC + 'assemble_forces.cu',
+                        'src/repro/core/snap.py:95'),
     'assemble_forces': (CSRC + 'assemble_forces.cu',
                         'src/repro/core/snap.py:95'),
     # the reference's jnp neighbor build (_bin_atoms, device_neighbors)
@@ -269,16 +292,17 @@ KERNELS = {   # name: (source, pl.pallas_call site it replaces)
 }
 HALF = ('snap_u_half', 'snap_y_half', 'snap_fused_de_half')
 FULL = ('snap_u_full', 'snap_y_full', 'snap_fused_de_full')
+ASSEMBLY = ('destination_csr', 'assemble_forces')
 # the kernels each path launches once per force evaluation
 PATHS = {
-    'half': HALF + ('assemble_forces',),
-    'full': FULL + ('assemble_forces',),
-    'bf16': ('snap_u_half', 'snap_y_half_bf16', 'snap_fused_de_half',
-             'assemble_forces'),
+    'half': HALF + ASSEMBLY,
+    'full': FULL + ASSEMBLY,
+    'bf16': ('snap_u_half', 'snap_y_half_bf16', 'snap_fused_de_half')
+    + ASSEMBLY,
     # run_nve(loop='device'): one gated rebuild (two launches) a step
-    'device': HALF + ('assemble_forces', 'cell_bin', 'cell_build'),
+    'device': HALF + ASSEMBLY + ('cell_bin', 'cell_build'),
     # ForceServer: one launch of each a batched step, whatever the batch
-    'serve': HALF + ('assemble_forces', 'brute_build'),
+    'serve': HALF + ASSEMBLY + ('brute_build',),
 }
 # the neighbor builds: held against their plain versions in their own
 # phases (neighbor, serve), not in the kernel phase
@@ -466,11 +490,19 @@ def ptxas_phase(built):
           f'{sorted(set(v["registers"] for v in y.values()))}, stack frames '
           f'{sorted(set(v.get("stack") for v in y.values()))} B, spill stores '
           f'{sorted(set(v.get("spill_stores") for v in y.values()))} B')
+    asm = {k: v for k, v in report.items()
+           if 'csr_' in k or 'assemble_forces_kernel' in k}
+    check(len(asm) == 8,
+          f'ptxas: {len(asm)} assembly kernels (CSR count, place and sort x '
+          'int32, int64 index; the assembly x f32, f64), '
+          + ', '.join(f'{k}: {v["registers"]} registers, {v.get("stack")} B '
+                      'stack' for k, v in sorted(asm.items())))
     nbr = {k: v for k, v in report.items()
            if any(f'{n}_kernel' in k for n in NEIGHBOR)}
-    check(len(nbr) == 8,
-          f'ptxas: {len(nbr)} neighbor kernels (cell bin, cell build, brute '
-          'build with 1 and 2 atoms a warp x f32, f64), '
+    check(len(nbr) == 10,
+          f'ptxas: {len(nbr)} neighbor kernels (cell bin with its arrays in '
+          'shared memory or scratch, cell build, brute build with 1 and 2 '
+          'atoms a warp x f32, f64), '
           + ', '.join(f'{k}: {v["registers"]} registers, {v.get("stack")} B '
                       'stack' for k, v in sorted(nbr.items())))
     return report
@@ -550,10 +582,12 @@ def kernel_phase(cfg, beta, nbr_idx, mask, disp, dtype, dev, names):
                        y_launch_tables(tj, lay, dev, plan.groups,
                                        plan.threads))
     dedr = snap_fused_de_half_plain(layout, *stages['half'][2], **geo)
-    dmask = (dedr[:, :3, :NATOMS].permute(2, 0, 1) *
-             ok[..., None].to(dtype)).contiguous()
-    csr = destination_csr(torch.as_tensor(nbr_idx, device=dev), NATOMS)
-    dest = torch.as_tensor(nbr_idx, device=dev).reshape(-1).long()
+    # the assembly reads the fused dE planes where they lie
+    dview = dedr[:, :3, :NATOMS].permute(2, 0, 1)
+    dmask = (dview * ok[..., None].to(dtype)).contiguous()
+    nbr_t = torch.as_tensor(nbr_idx, device=dev)
+    csr = destination_csr(nbr_t, NATOMS, ok)
+    dest = nbr_t.reshape(-1).long()
     bf16 = dict(mxu_dtype=torch.bfloat16)
     (uh, ch, yh, th), (uf, cf, yf, tf) = stages['half'], stages['full']
     cases = {   # name: (kernel, plain, bytes, operations, bar, library)
@@ -592,11 +626,17 @@ def kernel_phase(cfg, beta, nbr_idx, mask, disp, dtype, dev, names):
             lambda: snap_fused_de_full_plain(layout, *yf, **geo),
             2 * nbytes(layout) + nbytes(*yf), de_flops(tj, pairs),
             TOL[dtype], None),
+        # the by-destination index: bitwise (bar 0); no one-call library
+        # form computes it
+        'destination_csr': (
+            lambda: destination_csr(nbr_t, NATOMS, ok),
+            lambda: plain_csr(nbr_t, NATOMS, ok),
+            nbytes(nbr_t, ok, *csr), 4 * pairs, 0.0, None),
         'assemble_forces': (
-            lambda: assemble_forces_csr(dmask, *csr),
-            lambda: assemble_forces_csr_plain(dmask, *csr),
-            nbytes(dmask, *csr) + NATOMS * 3 * dmask.element_size(),
-            6 * pairs, TOL[dtype],
+            lambda: assemble_forces_csr(dview, *csr, 0, ok),
+            lambda: assemble_forces_csr_plain(dview, *csr, 0, ok),
+            nbytes(dmask, ok, *csr) + NATOMS * 3 * dmask.element_size(),
+            12 * pairs, TOL[dtype],
             # the one-call library form of the same sum: the own rows,
             # then index_add_ of the reactions (float atomics)
             lambda: dmask.sum(dim=1).index_add_(0, dest,
@@ -768,6 +808,59 @@ def profile_summary(prof, wall_us, reps, label, unit, top):
     return per
 
 
+# library sort kernels (cub's radix sort, ATen's sorts and searchsorted)
+SORT_NAMES = ('RadixSort', 'cub::', 'Sort', 'searchsorted')
+
+
+def stretch_of(prof):
+    """The device operations from just after each fused dE kernel to the
+    assembly kernel that ends the force evaluation, in a profile: (ops per
+    stretch, device ms per stretch, wall ms per stretch from the fused dE
+    kernel's end to the assembly's end, the names of one stretch), or None
+    without device events."""
+    from torch.autograd import DeviceType
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    runs, cur = [], None
+    for e in events:
+        if 'snap_fused_de' in e.name:
+            cur = dict(start=e.time_range.end, ops=[])
+        elif cur is not None:
+            cur['ops'].append(e)
+            if 'assemble_forces' in e.name:
+                runs.append(cur)
+                cur = None
+    if not runs:
+        return None
+    n = len(runs)
+    return (sum(len(r['ops']) for r in runs) / n,
+            sum(e.time_range.elapsed_us() for r in runs for e in r['ops'])
+            / n / 1e3,
+            sum(r['ops'][-1].time_range.end - r['start'] for r in runs)
+            / n / 1e3,
+            [f'{e.name[:60]} {e.time_range.elapsed_us():.2f} us'
+             for e in runs[0]['ops']])
+
+
+def print_stretch(label, st):
+    """Print and check :func:`stretch_of`'s result: no library sort
+    between the fused dE kernel and the forces."""
+    if st is None:
+        print(f'     {label}: no fused dE -> assembly stretch in the '
+              'profile (device time not measured)', flush=True)
+        return None
+    n_ops, dev_ms, wall_ms, names = st
+    print(f'     {label}: {n_ops:.1f} device operations from the fused dE '
+          f'kernel to the forces, {dev_ms:.4f} ms device, {wall_ms:.4f} ms '
+          f'from the fused dE kernel\'s end to the forces: {names}',
+          flush=True)
+    sorts = [n for n in names if any(k in n for k in SORT_NAMES)]
+    check(not sorts, f'{label}: no library sort or searchsorted between the '
+          f'fused dE kernel and the forces ({sorts or "none"})')
+    return dict(ops=n_ops, device_ms=dev_ms, wall_ms=wall_ms, names=names)
+
+
 def profile_phase(cfg, beta, nbr_idx, mask, disp, dev, layout, reps=5):
     """Where the device time of one float64 force evaluation on ``layout``
     planes goes (torch.profiler over ``reps`` evaluations)."""
@@ -787,6 +880,7 @@ def profile_phase(cfg, beta, nbr_idx, mask, disp, dev, layout, reps=5):
         wall_us = (time.perf_counter() - t0) * 1e6
     per = profile_summary(prof, wall_us, reps, f'profile {layout} f64',
                           'evaluation', 8)
+    print_stretch(f'profile {layout} f64 assembly stretch', stretch_of(prof))
     if per is None:
         return
     # an upload from pageable memory makes the host wait for the stream
@@ -1384,6 +1478,8 @@ def serve_kernel_checks(batches, dev):
             with mock.patch.object(ops, '_STAGES', ops._PLAIN_STAGES), \
                     mock.patch.object(core_snap, 'assemble_forces_csr',
                                       assemble_forces_csr_plain), \
+                    mock.patch.object(core_snap, 'destination_csr',
+                                      plain_csr), \
                     mock.patch.object(cl, 'brute_build',
                                       plain_brute_build):
                 e_p, f_p, fl_p = fn(**a)
@@ -1402,7 +1498,9 @@ def serve_kernel_checks(batches, dev):
             dedr, nbr, ok, natoms = seen[0]
             got = core_snap.assemble_forces(*seen[0])
             with mock.patch.object(core_snap, 'assemble_forces_csr',
-                                   assemble_forces_csr_plain):
+                                   assemble_forces_csr_plain), \
+                    mock.patch.object(core_snap, 'destination_csr',
+                                      plain_csr):
                 ref = core_snap.assemble_forces(*seen[0])
             _, err_a = rel_err(got, ref)
             lanes_ok = bool(((nbr // (natoms // SERVE_BATCH))
@@ -1774,7 +1872,7 @@ def serve_timing(srv, table, batches, dev):
                           'batched evaluation', 12) or {}
     stage = {k: sum(us for name, (_, us) in per.items() if k in name) / reps
              / 1e3 for k in ('brute_build', 'snap_u', 'snap_y',
-                             'snap_fused_de', 'assemble_forces')}
+                             'snap_fused_de', 'csr_', 'assemble_forces')}
     eval_ms, hidden_e = device_ms(lambda: fn(**a), k=5)
     brute = brute_timing(bucket, a)
     st = brute[a['pos'].dtype]          # the service's positions
@@ -2165,20 +2263,23 @@ def sharded_rank(rank, dev, cfg, beta, disp, nbr_idx, mask, pos, box, vel,
     rows = slice(offset, offset + n_local)
     nbr, ok = inputs[3][rows].long(), inputs[4][rows]
     g = torch.Generator(device=dev).manual_seed(rank)
-    d64 = (torch.randn((n_local, NNBOR, 3), generator=g, dtype=torch.float64,
-                       device=dev) * ok[..., None]).contiguous()
-    csr = destination_csr(torch.where(ok, nbr, NATOMS), NATOMS)
-    asm = {}
+    d64 = torch.randn((n_local, NNBOR, 3), generator=g, dtype=torch.float64,
+                      device=dev)
+    csr = destination_csr(nbr, NATOMS, ok)
+    asm = dict(csr_bitwise=all(torch.equal(a, b) for a, b in zip(
+        csr, plain_csr(nbr, NATOMS, ok))))
+    dm = ok[..., None]
     for dtype, sfx in ((torch.float64, ''), (torch.float32, '_f32')):
         d = d64.to(dtype)
 
         def library():   # the index_add_ form of the same partial
             part = d.new_zeros((NATOMS, 3))
-            part[rows] = d.sum(dim=1)
-            return part.index_add_(0, nbr.reshape(-1), -d.reshape(-1, 3))
+            dd = d * dm
+            part[rows] = dd.sum(dim=1)
+            return part.index_add_(0, nbr.reshape(-1), -dd.reshape(-1, 3))
 
-        got = assemble_forces_csr(d, *csr, offset)
-        want = assemble_forces_csr_plain(d, *csr, offset)
+        got = assemble_forces_csr(d, *csr, offset, ok)
+        want = assemble_forces_csr_plain(d, *csr, offset, ok)
         torch.cuda.synchronize()
         abs_err, err = rel_err(got, want)
         asm.update({f'max_abs_err{sfx}': abs_err, f'max_rel_err{sfx}': err,
@@ -2190,17 +2291,17 @@ def sharded_rank(rank, dev, cfg, beta, disp, nbr_idx, mask, pos, box, vel,
             if who == rank == 0:
                 asm.update({
                     f'ms{sfx}': time_ms(lambda: assemble_forces_csr(
-                        d, *csr, offset)),
+                        d, *csr, offset, ok)),
                     f'device_ms{sfx}': device_ms(lambda: assemble_forces_csr(
-                        d, *csr, offset))[0],
+                        d, *csr, offset, ok))[0],
                     f'plain_ms{sfx}': time_ms(
-                        lambda: assemble_forces_csr_plain(d, *csr, offset),
-                        reps=10),
+                        lambda: assemble_forces_csr_plain(d, *csr, offset,
+                                                          ok), reps=10),
                     f'library_ms{sfx}': time_ms(library),
                     f'library_device_ms{sfx}': device_ms(library)[0]})
                 asm[f'bound_ms{sfx}'], asm[f'bound_by{sfx}'] = bound(
-                    nbytes(d, *csr) + NATOMS * 3 * d.element_size(),
-                    6 * int(ok.sum()), dtype)
+                    nbytes(d, ok, *csr) + NATOMS * 3 * d.element_size(),
+                    12 * n_local * NNBOR, dtype)
     out['assemble'] = asm
 
     kw = dict(impl='kernel', loop='device', skin=SKIN,
@@ -2283,7 +2384,7 @@ def sharded_phase(cfg, beta, pos, box, nbr_idx, mask, disp, dev, straight):
           f'{wall:.1f} s wall with the spawn', flush=True)
     for tag, (impl, _, bar) in SHARD_PATHS.items():
         e_ref, ea_ref, f_ref = (t.double().cpu() for t in ref[tag])
-        path = PATHS['half'] if impl == 'kernel' else ('assemble_forces',)
+        path = PATHS['half'] if impl == 'kernel' else ASSEMBLY
         want = {n: (1 if n in path else 0) for n in r0[tag]['counts']}
         for r in ranks:
             got = r[tag]
@@ -2311,6 +2412,10 @@ def sharded_phase(cfg, beta, pos, box, nbr_idx, mask, disp, dev, straight):
               flush=True)
     for r in ranks:
         a = r['assemble']
+        check(a['csr_bitwise'], f'destination_csr offset form, rank '
+              f'{r["rank"]} (rows {r["rank"] * NATOMS // SHARDS}.. of the '
+              f'global lists, {NATOMS} output rows): bitwise the plain '
+              'version')
         for dtype, sfx in ((torch.float64, ''), (torch.float32, '_f32')):
             check(a[f'max_rel_err{sfx}'] <= TOL[dtype]
                   and a[f'shape{sfx}'] == [NATOMS, 3]
@@ -2360,12 +2465,14 @@ def sharded_phase(cfg, beta, pos, box, nbr_idx, mask, disp, dev, straight):
               f'{terr:.3e} (bar {THERMO_TOL:.0e})')
     for r in ranks:
         an = r['analysis']
-        check(not an['errors'] and an['metrics'].get('launches') == 1,
+        check(not an['errors'] and
+              an['metrics'].get('launches') == len(ASSEMBLY),
               f'analysis force.torch.sharded rank {r["rank"]}: '
               f'{len(an["errors"])} unallowlisted finding(s) or budget '
               f'error(s) of the cuda section {an["errors"][:3]}, '
-              f'{an["metrics"].get("launches")} launch a call (the '
-              f'assembly), peak bytes {an["metrics"].get("peak_bytes")}; '
+              f'{an["metrics"].get("launches")} launches a call (the '
+              f'by-destination index and the assembly), peak bytes '
+              f'{an["metrics"].get("peak_bytes")}; '
               f'allowlisted by name: {sorted(set(an["suppressed"]))}')
     print(f'     sharded device loop: {r0["md_ms_step"]:.3f} / '
           f'{ranks[1]["md_ms_step"]:.3f} ms per step on rank 0 / 1 '
@@ -3520,6 +3627,352 @@ def mesh_phase(dev, train=None, dry=None):
     return numbers
 
 
+def plain_csr(nbr_idx, n_out, mask):
+    """The plain by-destination index of ``destination_csr``'s arguments:
+    the sentinel where, then ``destination_csr_plain``."""
+    from repro_torch.kernels.assemble import destination_csr_plain
+    return destination_csr_plain(torch.where(mask, nbr_idx, n_out), n_out)
+
+
+def new_assembly():
+    """True where the package has the by-destination kernels (the checks
+    below need them; an older tree runs the timings alone)."""
+    from repro_torch.kernels import assemble
+    return hasattr(assemble, 'destination_csr_plain')
+
+
+def big_box(natoms, seed=3):
+    """snap-2j8's lattice at ``natoms`` atoms (16000: 2 x 2 x 2 of it),
+    perturbed 0.02 A."""
+    from repro_torch.md.lattice import paper_box, perturb
+    pos, box = paper_box(natoms)
+    return perturb(pos, 0.02, seed=seed), box
+
+
+def csr_cases(dev):
+    """(what, nbr_idx, n_out, mask) on the card: snap-2j8's 26-wide lists,
+    the device loop's 52-wide ones (int32, as the loop holds them), each
+    serving bucket's lane-offset lists (masked slots get the sentinel B x
+    lane_atoms), both ranks' rows of the offset form, a 16,000-atom box's
+    lists, atoms named 126 and 626 times, one atom named by every pair,
+    n_out = 1 and every pair masked."""
+    from repro_torch.kernels import ops
+    from repro_torch.md import cell_list as cl
+    _, _, pos, box, nbr_idx, mask, _ = setup(8, dev)
+    nbr = torch.as_tensor(nbr_idx, device=dev)
+    ok = torch.as_tensor(mask, device=dev)
+    out = [('snap-2j8 26-wide', nbr, NATOMS, ok),
+           ('snap-2j8 26-wide int32', nbr.int(), NATOMS, ok)]
+    pos_t, box_t = (torch.as_tensor(a, device=dev) for a in (pos, box))
+    ni, ms, _, _ = cl.device_neighbors(pos_t, box_t, device_grid(pos, box))
+    out += [('device loop 52-wide int32', ni, NATOMS, ms),
+            ('device loop 52-wide', ni.long(), NATOMS, ms)]
+    for n_pad, (bucket, a) in serve_batches(default_serve_table(),
+                                            dev).items():
+        bn, bm, _, _ = cl.brute_neighbors_batched(
+            a['pos'], a['box'], RCUT, bucket.max_nbors, a['n_valid'])
+        lane_atoms = -(-n_pad // 128) * 128
+        base = torch.arange(bn.shape[0], device=dev) * lane_atoms
+        out.append((f'serve n{n_pad} lane-offset',
+                    ops._lanes_flat(bn.long() + base[:, None, None],
+                                    lane_atoms),
+                    bn.shape[0] * lane_atoms, ops._lanes_flat(bm, lane_atoms)))
+    half = NATOMS // 2
+    out += [(f'offset form rows {r * half}..', nbr[r * half:(r + 1) * half],
+             NATOMS, ok[r * half:(r + 1) * half]) for r in range(2)]
+    p16, b16 = big_box(16000)
+    p16_t, b16_t = (torch.as_tensor(a, device=dev) for a in (p16, b16))
+    n16, m16, _, _ = cl.device_neighbors(p16_t, b16_t, device_grid(p16, b16))
+    out.append(('16000 atoms 52-wide', n16.long(), 16000, m16))
+    many = nbr.clone()
+    many[:100, 1] = 11
+    many[:600, 0] = 7
+    out.append(('atoms 11 and 7 named 126 and 626 times', many, NATOMS,
+                torch.ones_like(ok)))
+    out.append(('atom 0 named by every pair', torch.zeros_like(nbr), NATOMS,
+                torch.ones_like(ok)))
+    g = torch.Generator(device=dev).manual_seed(4)
+    out.append(('n_out 1', torch.zeros((40, NNBOR), dtype=torch.long,
+                                       device=dev), 1,
+                torch.rand((40, NNBOR), generator=g, device=dev) < 0.5))
+    out.append(('every pair masked', nbr, NATOMS, torch.zeros_like(ok)))
+    return out
+
+
+def assembly_checks(dev):
+    """The by-destination index and the assembly on the card: the CSR
+    kernels bitwise against the plain version in every case of
+    :func:`csr_cases`; the assembly against its plain version at TOL on
+    the fused dE planes' view (f64, f32), on a contiguous copy (bitwise the
+    view's), in the offset form, on the serving lanes and the 16,000-atom
+    lists, with a NaN in a masked slot, and twice bitwise."""
+    from repro_torch.kernels.assemble import (assemble_forces_csr,
+                                              assemble_forces_csr_plain,
+                                              destination_csr)
+    cases = csr_cases(dev)
+    for what, nbr, n_out, mask in cases:
+        got = destination_csr(nbr, n_out, mask)
+        want = plain_csr(nbr, n_out, mask)
+        torch.cuda.synchronize()
+        seg = (want[1][1:] - want[1][:-1]).max() if n_out else 0
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f'destination_csr {what}: kernel vs plain bitwise on order '
+              f'and rowptr ({nbr.numel()} pairs, {n_out} rows, '
+              f'{int(want[1][-1])} kept, longest segment {int(seg)}, '
+              f'{str(nbr.dtype)[6:]} index)')
+    g = torch.Generator(device=dev).manual_seed(0)
+    for what, nbr, n_out, mask in cases:
+        if what.startswith(('snap-2j8 26-wide int32', 'device loop 52-wide '
+                            'int32', 'n_out', 'every', 'atom 0')):
+            continue
+        n_local, k = nbr.shape
+        offset = n_local if what.startswith('offset form rows 1000') else 0
+        npad = -(-n_local // 128) * 128
+        csr = destination_csr(nbr, n_out, mask)
+        for dtype in (torch.float64, torch.float32):
+            planes = torch.randn((k, 4, npad), generator=g, dtype=dtype,
+                                 device=dev)
+            view = planes[:, :3, :n_local].permute(2, 0, 1)
+            got = assemble_forces_csr(view, *csr, offset, mask)
+            got2 = assemble_forces_csr(view, *csr, offset, mask)
+            flat = assemble_forces_csr(view.contiguous(), *csr, offset, mask)
+            want = assemble_forces_csr_plain(view, *csr, offset, mask)
+            torch.cuda.synchronize()
+            abs_err, err = rel_err(got, want)
+            check(err <= TOL[dtype] and torch.equal(got, got2)
+                  and torch.equal(got, flat),
+                  f'assemble_forces {what} {str(dtype)[6:]} on the planes\' '
+                  f'view (strides {view.stride()}): vs plain max rel err '
+                  f'{err:.3e} (bar {TOL[dtype]:.0e}), max abs err '
+                  f'{abs_err:.3e}; twice bitwise, a contiguous copy bitwise '
+                  'the same')
+            if what == 'device loop 52-wide':
+                i, j = (~mask).nonzero()[0].tolist()
+                bad = planes.clone()
+                bad[j, 1, i] = float('nan')
+                bview = bad[:, :3, :n_local].permute(2, 0, 1)
+                got = assemble_forces_csr(bview, *csr, 0, mask)
+                want = assemble_forces_csr_plain(bview, *csr, 0, mask)
+                torch.cuda.synchronize()
+                same_nan = torch.equal(got.isnan(), want.isnan())
+                fin = ~want.isnan()
+                _, err = rel_err(got[fin], want[fin])
+                check(same_nan and bool(want.isnan().any())
+                      and err <= TOL[dtype],
+                      f'assemble_forces {str(dtype)[6:]}: a NaN dE/dr in a '
+                      f'masked slot (atom {i}, slot {j}) gives the plain '
+                      f'version\'s NaN rows ({int(want.isnan().any(1).sum())}'
+                      f'), the other rows within {err:.3e}')
+
+
+def cell_bin_cases(dev):
+    """(what, pos, box, grid): snap-2j8 (the device loop's grid), signed
+    zeros, an overflow (cell_cap 8), a one-cell box below and past its
+    count (54 atoms, ranked) and past the ranked size (128 atoms, walked),
+    the 16,000-atom box and a 54,000-atom box (its arrays in scratch)."""
+    from repro_torch.md import cell_list as cl
+    _, _, pos, box, *_ = setup(8, dev)
+    out = [('snap-2j8', pos, box, device_grid(pos, box)),
+           ('snap-2j8 signed zeros', signed_zero_positions(pos, box), box,
+            device_grid(pos, box)),
+           ('snap-2j8 overflow', pos, box, cl.make_grid(box, RCUT, SKIN, 8,
+                                                        12))]
+    for n, skin, caps in ((54, SKIN, (64, 16)), (128, 3.0, (160, 100))):
+        p, b = big_box(n)
+        out += [(f'one-cell box {n} atoms cell_cap {c}', p, b,
+                 cl.make_grid(b, RCUT, skin, c, 12)) for c in caps]
+    for n in (16000, 54000):
+        p, b = big_box(n)
+        out.append((f'{n} atoms', p, b, device_grid(p, b)))
+    return out
+
+
+def cell_bin_checks(dev):
+    """cell_bin bitwise against its plain version (table and flags) in
+    every case of :func:`cell_bin_cases`, float64 and float32."""
+    from repro_torch.kernels import neighbors as kn
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    for what, pos, box, grid in cell_bin_cases(dev):
+        for dtype in (torch.float64, torch.float32):
+            p, b = (torch.as_tensor(a, dtype=dtype, device=dev)
+                    for a in (pos, box))
+            fk, fp = (torch.zeros(2, dtype=torch.int32, device=dev)
+                      for _ in range(2))
+            tk = kn.cell_bin(p, b, grid, one, fk)
+            tp = kn.cell_bin_plain(p, b, grid, one, fp)
+            torch.cuda.synchronize()
+            check(torch.equal(tk, tp) and torch.equal(fk, fp),
+                  f'cell_bin {what} {str(dtype)[6:]}: kernel vs plain '
+                  f'bitwise on the table and flags (nbins {grid.nbins}, '
+                  f'cell_cap {grid.cell_cap}, largest count '
+                  f'{int(fp[1])})')
+
+
+def assembly_timing(dev):
+    """Times of the assembly stretch, its kernels and cell_bin at snap-2j8
+    in this tree's package, through the entry points an older tree has
+    too (for A/B runs: this file copied into the older tree)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import snap as core_snap
+    from repro_torch.kernels import assemble
+    from repro_torch.kernels import neighbors as kn
+    from repro_torch.kernels import ops
+    new = new_assembly()
+    cfg, beta, pos, box, nbr_idx, mask, disp = setup(8, dev)
+    nbr = torch.as_tensor(nbr_idx, device=dev)
+    ok = torch.as_tensor(mask, device=dev)
+    npad = -(-NATOMS // 128) * 128
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = dict(tree=str(Path(__file__).resolve().parent), new_api=new,
+               card=card_identity())
+    for dtype in (torch.float64, torch.float32):
+        dt = str(dtype)[6:]
+        planes = torch.randn((NNBOR, 4, npad), generator=g, dtype=dtype,
+                             device=dev)
+        view = planes[:, :3, :NATOMS].permute(2, 0, 1)
+        d = (view * ok[..., None]).contiguous()
+
+        def stretch():
+            return core_snap.assemble_forces(view, nbr, ok, NATOMS)
+        if new:
+            csr = assemble.destination_csr(nbr, NATOMS, ok)
+
+            def kern():
+                return assemble.assemble_forces_csr(view, *csr, 0, ok)
+
+            def csr_fn():
+                return assemble.destination_csr(nbr, NATOMS, ok)
+        else:
+            dest = torch.where(ok, nbr, NATOMS)
+            csr = assemble.destination_csr(dest, NATOMS)
+
+            def kern():
+                return assemble.assemble_forces_csr(d, *csr)
+
+            def csr_fn():
+                return assemble.destination_csr(torch.where(ok, nbr, NATOMS),
+                                                NATOMS)
+        flat = nbr.reshape(-1)
+
+        def library():
+            return d.sum(dim=1).index_add_(0, flat, -d.reshape(-1, 3))
+        for name, fn in (('stretch', stretch), ('assemble_forces', kern),
+                         ('destination_csr', csr_fn), ('index_add', library)):
+            if name == 'destination_csr' and dtype == torch.float32:
+                continue
+            out[f'{name}_ms_{dt}'] = time_ms(fn)
+            out[f'{name}_device_ms_{dt}'] = device_ms(fn)[0]
+        stretch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                stretch()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        out[f'stretch_ops_{dt}'] = len(ev) / 10
+        out[f'stretch_profile_device_ms_{dt}'] = sum(
+            e.time_range.elapsed_us() for e in ev) / 10 / 1e3
+        per = collections.defaultdict(float)
+        for e in ev:
+            per[e.name[:50]] += e.time_range.elapsed_us() / 10
+        out[f'stretch_us_{dt}'] = dict(per)
+    # one half-layout f64 evaluation's stretch from the fused dE kernel
+    args = (cfg, beta, 0.0, *device_inputs(disp, nbr_idx, mask, dev))
+    kw = dict(dtype=torch.float64, device=dev, layout='half')
+    ops.snap_force_pipeline(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            ops.snap_force_pipeline(*args, **kw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    profile_summary(prof, wall_us, 5, 'assembly A/B: profile half f64',
+                    'evaluation', 6)
+    st = print_stretch('assembly A/B: half f64 stretch', stretch_of(prof))
+    out['half_stretch'] = st
+    out['half_eval_device_ms'] = device_ms(
+        lambda: ops.snap_force_pipeline(*args, **kw), k=5)[0]
+    # cell_bin: snap-2j8 and 16,000 atoms, a launch and a gated launch
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    for tag, (p, b) in (('2000', (pos, box)), ('16000', big_box(16000))):
+        grid = device_grid(p, b)
+        for dtype in (torch.float64, torch.float32):
+            dt = str(dtype)[6:]
+            p_t, b_t = (torch.as_tensor(a, dtype=dtype, device=dev)
+                        for a in (p, b))
+            fl = torch.zeros(2, dtype=torch.int32, device=dev)
+            k = f'cell_bin_{tag}_{dt}'
+            out[f'{k}_ms'] = time_ms(lambda: kn.cell_bin(p_t, b_t, grid, one,
+                                                         fl))
+            out[f'{k}_device_ms'] = device_ms(
+                lambda: kn.cell_bin(p_t, b_t, grid, one, fl))[0]
+            out[f'{k}_gated_device_ms'] = device_ms(
+                lambda: kn.cell_bin(p_t, b_t, grid, zero, fl),
+                k=GATED_REPS)[0]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    kn.cell_bin(p_t, b_t, grid, one, fl)
+                torch.cuda.synchronize()
+            out[f'{k}_profile_us'] = sum(
+                e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA) / 10
+            if tag == '2000':
+                out[f'{k}_plain_ms'] = time_ms(
+                    lambda: kn.cell_bin_plain(p_t, b_t, grid, one, fl),
+                    reps=10)
+    # the device loop, 20 steps with the chunk function cached
+    from repro_torch.md.integrate import MDState, init_velocities, run_nve
+    vel = init_velocities(NATOMS, 300.0)
+    kw = dict(impl='kernel', loop='device', skin=SKIN,
+              max_nbors=DEVICE_NBORS, log_every=DEVICE_LOG, device=dev,
+              dtype=torch.float64)
+    cache = {}
+    _, thermo = run_nve(cfg, beta, 0.0, MDState(pos.copy(), vel.copy(), box),
+                        DEVICE_STEPS, fn_cache=cache, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_nve(cfg, beta, 0.0, MDState(pos.copy(), vel.copy(), box),
+            DEVICE_STEPS, fn_cache=cache, **kw)
+    torch.cuda.synchronize()
+    out['device_loop_ms_step'] = (time.perf_counter() - t0) * 1e3 / \
+        DEVICE_STEPS
+    out['device_loop_thermo'] = [(t['step'], t['pe'], t['etot'])
+                                 for t in thermo]
+    return out
+
+
+def assembly_main(dev):
+    """``--assembly``: the assembly's and cell_bin's checks (where the tree
+    has the by-destination kernels) and times alone.  Returns an exit
+    code."""
+    from repro_torch.kernels import _build
+    print(f'card: {card_identity()}; torch {torch.__version__}', flush=True)
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f'build: {time.perf_counter() - t0:.1f} s', flush=True)
+    for lib in ('assemble_forces', 'cell_list'):
+        for k, r in _build.ptxas_report(built[lib]['log']).items():
+            if 'registers' in r:
+                print(f'     ptxas {lib}: {k}: {r["registers"]} registers, '
+                      f'{r.get("stack")} B stack, {r.get("spill_stores")} B '
+                      'spill stores', flush=True)
+    if new_assembly():
+        assembly_checks(dev)
+    else:
+        print('     (an older tree: timings only)', flush=True)
+    cell_bin_checks(dev)
+    print('assembly: ' + json.dumps(assembly_timing(dev), default=str),
+          flush=True)
+    print(f'chip_smoke --assembly: {len(FAILURES)} check(s) failed',
+          flush=True)
+    return 1 if FAILURES else 0
+
+
 def neighbor_checks(dev):
     """``--neighbors``: the neighbor builds alone (the cell kernels at
     snap-2j8 in both dtypes, the device loop on them against the plain
@@ -3532,6 +3985,7 @@ def neighbor_checks(dev):
     cfg, beta, pos, box, *_ = setup(8, dev)
     for dtype in (torch.float64, torch.float32):
         neighbor_phase(pos, box, dev, dtype)
+    cell_bin_checks(dev)
     device_loop_bitwise(cfg, beta, pos, box, dev)
     batches = serve_batches(default_serve_table(), dev)
     serve_neighbor_checks(batches, dev)
@@ -3552,6 +4006,8 @@ def main():
     dev = torch.device('cuda', 0)
     if sys.argv[1:] == ['--neighbors']:
         return neighbor_checks(dev)
+    if sys.argv[1:] == ['--assembly']:
+        return assembly_main(dev)
     with tempfile.TemporaryDirectory() as tmp:
         dry = start_dryruns(tmp)
         try:
@@ -3591,6 +4047,8 @@ def run_phases(dev, dry):
                 ('bf16', BF16_MD_STEPS, torch.float32))}
     for dtype in (torch.float64, torch.float32):
         stats[dtype].update(neighbor_phase(pos, box, dev, dtype))
+    cell_bin_checks(dev)
+    assembly_checks(dev)
     runs['device'] = device_loop_phase(cfg, beta, pos, box, dev)
     device_loop_bitwise(cfg, beta, pos, box, dev)
     sharded_counts, sharded_numbers = sharded_phase(

@@ -63,8 +63,10 @@ def bound(nbytes, flops, dtype):
 def launch_flops(rec) -> float:
     """Operations of one :class:`~repro_torch.analysis.launches.LaunchRecord`
     from its shapes: U, Y and fused dE by the counts above (pairs = nnbor x
-    lanes; Y: the coefficient table's nnz x lanes), the assembly 6 a pair,
-    the cell bin 12 an atom, the cell build 20 a table slot it walks and
+    lanes; Y: the coefficient table's nnz x lanes), the by-destination
+    CSR 4 a pair (its key, count, place and share of its segment's sort),
+    the assembly 12 a pair (a mask multiply and an add for each component,
+    on the own row and in the reaction), the cell bin 12 an atom, the cell build 20 a table slot it walks and
     the brute build 20 a pair of its B x N x N."""
     name, tj = rec.name, rec.meta.get('twojmax', 0)
     if name.startswith('snap_u_'):
@@ -79,9 +81,12 @@ def launch_flops(rec) -> float:
         return y_flops(rec.in_shapes[2][-1], rec.lanes)
     if name.startswith('snap_fused_de_'):
         return de_flops(tj, rec.in_shapes[0][0] * rec.lanes)
+    if name == 'destination_csr':
+        n_local, nnbor = rec.in_shapes[0]
+        return 4 * n_local * nnbor
     if name == 'assemble_forces':
         n_local, nnbor, _ = rec.in_shapes[0]
-        return 6 * n_local * nnbor
+        return 12 * n_local * nnbor
     if name == 'cell_bin':
         return 12 * rec.lanes
     if name == 'cell_build':

@@ -35,11 +35,13 @@ from .retrace import record_trace
 TWOJMAX = 2
 RCUT = 3.0
 HALF = ('snap_u_half', 'snap_y_half', 'snap_fused_de_half',
-        'assemble_forces')
+        'destination_csr', 'assemble_forces')
 FULL = ('snap_u_full', 'snap_y_full', 'snap_fused_de_full',
-        'assemble_forces')
+        'destination_csr', 'assemble_forces')
 BF16 = ('snap_u_half', 'snap_y_half_bf16', 'snap_fused_de_half',
-        'assemble_forces')
+        'destination_csr', 'assemble_forces')
+# the force assembly of the adjoint, baseline and sharded paths
+ASSEMBLY = ('destination_csr', 'assemble_forces')
 # the sharded adjoint's gloo collectives, allowlisted by name
 COLLECTIVES = ('c10d._reduce_scatter_base_', 'c10d.allreduce_')
 
@@ -260,13 +262,13 @@ def default_registry(device='cuda') -> List[EntryPoint]:
         EntryPoint(
             name='force.torch.adjoint', build=_torch_entry('adjoint', device),
             policy=DtypePolicy(allow_f64=True),
-            launches=once(('assemble_forces',)),
+            launches=once(ASSEMBLY),
             description='paper Sec. IV adjoint pipeline (f64 oracle)'),
         EntryPoint(
             name='force.torch.baseline',
             build=_torch_entry('baseline', device),
             policy=DtypePolicy(allow_f64=True),
-            launches=once(('assemble_forces',)),
+            launches=once(ASSEMBLY),
             description='pre-paper baseline (Z + dB materialized)'),
         EntryPoint(
             name='force.kernel.half', build=_kernel_entry('half', device),
@@ -288,7 +290,8 @@ def default_registry(device='cuda') -> List[EntryPoint]:
         EntryPoint(
             name='md.device_chunk', build=_md_chunk_entry(device),
             policy=DtypePolicy(allow_f64=True),
-            launches={'cell_bin': 3, 'cell_build': 3, 'assemble_forces': 3},
+            launches={'cell_bin': 3, 'cell_build': 3, 'destination_csr': 3,
+                      'assemble_forces': 3},
             description='device-loop MD chunk (in-chunk rebuilds, n_sub=3)'),
         EntryPoint(
             name='serve.bucket_step', build=_serve_entry(device),
@@ -304,7 +307,7 @@ def default_registry(device='cuda') -> List[EntryPoint]:
         entries.append(EntryPoint(
             name='force.torch.sharded', build=_sharded_entry(device),
             policy=DtypePolicy(allow_f64=True),
-            launches=once(('assemble_forces',)),
+            launches=once(ASSEMBLY),
             allow=frozenset(f'host-sync:{op}' for op in COLLECTIVES),
             sync_check=False,
             description='atom-sharded adjoint pipeline (reduce-scatter '

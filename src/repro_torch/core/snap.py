@@ -148,11 +148,12 @@ def assemble_forces(dedr, nbr_idx, mask, natoms, group=None):
         raise ValueError(f'dedr has {n_local} atom rows on each of {world} '
                          f'rank(s), expected {natoms} atoms in all')
     offset = 0 if group is None else dist.get_rank(group) * n_local
-    d = (dedr * mask[..., None].to(dedr.dtype)).contiguous()
     # masked slots name no atom: they sort past the last segment, so no
-    # thread walks them (padded lists name atom 0 in every empty slot)
-    dest = torch.where(mask, nbr_idx, natoms)
-    f = assemble_forces_csr(d, *destination_csr(dest, natoms), offset)
+    # thread walks them (padded lists name atom 0 in every empty slot);
+    # dedr is read where it lies (the fused dE planes' view on the card)
+    nbr_idx, mask = nbr_idx.contiguous(), mask.contiguous()
+    f = assemble_forces_csr(dedr, *destination_csr(nbr_idx, natoms, mask),
+                            offset, mask)
     if group is None:
         return f
     out = f.new_empty((n_local, 3))

@@ -136,7 +136,7 @@ def _function(source: str, symbol: str, argtypes: tuple):
     return fn, err
 
 
-P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+P, I, D, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 # kernel launches per wrapper entry (launches.record counts; CPU runs do not)
 LAUNCHES = collections.Counter()
 

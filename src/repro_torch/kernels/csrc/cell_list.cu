@@ -6,16 +6,28 @@
 // launches read a 0-d int32 `trigger` first and return at once when it is
 // 0: the host never reads the decision, and every buffer is left untouched.
 //
-// - cell_bin: one block per cell.  The block walks all atoms in index
-//   order, blockDim at a time; each thread bins its atom with the
-//   reference's arithmetic, and a warp ballot, __popc and per-warp counts
-//   in shared memory give each atom of the cell its rank.  That keeps the
-//   order of the reference's stable sort (atoms of a cell in increasing
-//   index) without a sort or an atomic slot counter.  Slots past the
-//   cell's count hold N (empty); atoms past cell_cap are dropped and the
-//   count is raised into flags[FLAG_CELL_MAX] (integer atomicMax: its
-//   result does not depend on order).  O(ncells * N) bin computations,
-//   216 x 2000 at snap-2j8.
+// - cell_bin: a stable counting sort by cell in one block (a redesign of
+//   the first form's block a cell, which binned all N atoms again in each
+//   of the ncells blocks: O(ncells * N) bins, 216 x 2000 at snap-2j8).
+//   Each atom is binned once with the reference's arithmetic (the trigger,
+//   the box and a thread's first atoms loaded in one round trip), the
+//   cells are counted with shared-memory atomics and one warp sums the
+//   counts into starts; the atoms are put in their cell's range at an
+//   atomic cursor (an order that varies), and then each atom's slot is its
+//   rank, the number of its cell's members below it (a cell of up to
+//   BIN_SMALL atoms), or a warp's ballot walk over the atoms in index order
+//   finds the first cell_cap of a larger cell.  That is the order of the
+//   reference's stable sort (atoms of a cell in increasing index); slots
+//   past the cell's count hold N (empty); atoms past cell_cap are dropped
+//   and the largest count is raised into flags[FLAG_CELL_MAX] (integer
+//   atomicMax: its result does not depend on order).  O(N + ncells) work;
+//   the arrays (2 N + 2 ncells + 1 words) live in shared memory, or in the
+//   wrapper's scratch past 226 KB (about 29,000 atoms).  One launch, so a
+//   gated call (trigger 0) costs one launch that returns at once.  One
+//   SM's FP64 divisions and shared-memory round trips bound it (~7 us at
+//   snap-2j8); spreading it over a cluster of 8 blocks through
+//   distributed shared memory was slower there (its barriers and remote
+//   round trips cost more than the work they split).
 // - cell_build: one block per cell (a redesign of the first form's one
 //   warp an atom, which walked 27 cells of table slots from memory, 7 of
 //   every 32 lanes idle, and left the card mostly idle).  The block reads the
@@ -50,7 +62,11 @@
 // What holds the build back is latency: 216 blocks (one a cell) on 132
 // SMs, each a chain of dependent steps (the trigger, the table, the
 // positions, two barriers) before its warps walk about 250 candidates
-// each; cell_bin is still its first form.
+// each.  cell_bin reads 48 KB and writes a 22 KB table (~0.02 us of
+// bytes); one block's chain of barriers (bin, scan, place, rank) bounds
+// it.
+
+#include <climits>
 
 #include "rn_math.cuh"
 #include "snap_common.cuh"
@@ -78,50 +94,161 @@ __device__ __forceinline__ int axis_offset(int n, int a) {
   return a < 2 ? a : n - 1;
 }
 
-template <typename T>
-__global__ void cell_bin_kernel(const T* __restrict__ pos,
-                                const T* __restrict__ box,
-                                const int* __restrict__ trigger,
-                                int* __restrict__ table, int* flags, int n,
-                                int nx, int ny, int nz, int cap) {
-  if (*trigger == 0) return;
-  __shared__ int warp_count[32];
-  __shared__ int base;
-  const int cell = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+#define BIN_THREADS 1024
+#define BIN_WARPS (BIN_THREADS / 32)
+#define BIN_SMALL 64   // cells up to this many atoms are ranked, larger walked
+// dynamic shared memory the arrays may take (the rest of the block's 227 KB
+// holds the static arrays); kernels/neighbors.py holds the same
+#define BIN_SMEM_MAX (SNAP_SMEM_MAX - 1024)
+
+// Keeps a loaded value's load ahead of this point (the compiler would
+// otherwise sink it past the trigger's early return).
+__device__ __forceinline__ void issued(float v) { asm volatile("" ::"f"(v)); }
+__device__ __forceinline__ void issued(double v) { asm volatile("" ::"d"(v)); }
+
+// One block of BIN_THREADS.  Its arrays (each atom's cell, the atoms by
+// cell, each cell's start and cursor: cell_bin_words int32 words) lie in
+// shared memory, or in the wrapper's scratch where they do not fit.
+template <typename T, bool STAGED>
+__global__ void __launch_bounds__(BIN_THREADS) cell_bin_kernel(
+    const T* __restrict__ pos, const T* __restrict__ box,
+    const int* __restrict__ trigger, int* __restrict__ table, int* flags,
+    int* scratch, int n, int nx, int ny, int nz, int cap) {
+  extern __shared__ __align__(16) unsigned char snap_smem[];
+  __shared__ int s_big;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the trigger, the box and the thread's first two atoms in one round trip
+  const int fire = *trigger;
   const T bx = box[0], by = box[1], bz = box[2];
-  if (threadIdx.x == 0) base = 0;
-  __syncthreads();
-  for (int start = 0; start < n; start += blockDim.x) {
-    const int i = start + threadIdx.x;
-    bool in = false;
-    if (i < n) {
-      const int b0 = bin_of(pos[3 * i], bx, nx);
-      const int b1 = bin_of(pos[3 * i + 1], by, ny);
-      const int b2 = bin_of(pos[3 * i + 2], bz, nz);
-      in = (b0 * ny + b1) * nz + b2 == cell;
+  T x[2][3];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = tid + u * BIN_THREADS;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      x[u][a] = i < n ? pos[3 * i + a] : T(0);
+      issued(x[u][a]);
     }
-    const unsigned ballot = __ballot_sync(0xffffffffu, in);
-    if (lane == 0) warp_count[warp] = __popc(ballot);
-    __syncthreads();
-    if (in) {
-      int rank = base + __popc(ballot & ((1u << lane) - 1u));
-      for (int w = 0; w < warp; ++w) rank += warp_count[w];
-      if (rank < cap) table[(size_t)cell * cap + rank] = i;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int s = 0;
-      for (int w = 0; w < nwarps; ++w) s += warp_count[w];
-      base += s;
-    }
-    __syncthreads();
   }
-  const int count = base;
-  for (int s = count + threadIdx.x; s < cap; s += blockDim.x)
-    table[(size_t)cell * cap + s] = n;
-  if (threadIdx.x == 0) atomicMax(flags + CELL_FLAG_CELL_MAX, count);
+  if (fire == 0) return;
+  const int ncells = nx * ny * nz;
+  // STAGED: the arrays in shared memory (the compiler then knows their
+  // space: shared-memory loads and atomics, not generic ones)
+  int* cell = STAGED ? reinterpret_cast<int*>(snap_smem) : scratch;
+  int* member = cell + n;
+  int* start = member + n;            // ncells + 1
+  int* cursor = start + ncells + 1;   // ncells
+  for (int c = tid; c < ncells; c += BIN_THREADS) cursor[c] = 0;
+  if (tid == 0) s_big = 0;
+  __syncthreads();
+  // each atom binned once, with the reference's arithmetic; cell counts
+  for (int i0 = tid; i0 < n; i0 += 2 * BIN_THREADS) {
+    if (i0 != tid) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = i0 + u * BIN_THREADS;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) x[u][a] = i < n ? pos[3 * i + a] : T(0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + u * BIN_THREADS;
+      if (i < n) {
+        const int c = (bin_of(x[u][0], bx, nx) * ny +
+                       bin_of(x[u][1], by, ny)) * nz +
+                      bin_of(x[u][2], bz, nz);
+        cell[i] = c;
+        atomicAdd(cursor + c, 1);
+      }
+    }
+  }
+  __syncthreads();
+  // warp 0: the counts' exclusive sum into start (a lane 8 cells a step),
+  // the largest count into flags, the cursors back to 0
+  if (warp == 0) {
+    int carry = 0, top = 0;
+    for (int c0 = 0; c0 < ncells; c0 += 32 * 8) {
+      int v[8], s = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int c = c0 + lane * 8 + q;
+        v[q] = c < ncells ? cursor[c] : 0;
+        s += v[q];
+        top = max(top, v[q]);
+      }
+      int y = s;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int z = __shfl_up_sync(0xffffffffu, y, d);
+        if (lane >= d) y += z;
+      }
+      int run = carry + y - s;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int c = c0 + lane * 8 + q;
+        if (c < ncells) {
+          start[c] = run;
+          cursor[c] = 0;
+        }
+        run += v[q];
+      }
+      carry += __shfl_sync(0xffffffffu, y, 31);
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      top = max(top, __shfl_xor_sync(0xffffffffu, top, d));
+    if (lane == 0) {
+      start[ncells] = carry;
+      s_big = top > BIN_SMALL;
+      atomicMax(flags + CELL_FLAG_CELL_MAX, top);
+    }
+  }
+  __syncthreads();
+  // the atoms grouped by cell (in no fixed order within a cell)
+  for (int i = tid; i < n; i += BIN_THREADS) {
+    const int c = cell[i];
+    member[start[c] + atomicAdd(cursor + c, 1)] = i;
+  }
+  __syncthreads();
+  // the table in index order: in a cell of up to BIN_SMALL atoms, each
+  // atom goes to the slot of its rank (the number of its cell's members
+  // below it), if that is under cap; slots past a cell's count hold N
+  for (int i = tid; i < n; i += BIN_THREADS) {
+    const int c = cell[i], s = start[c], len = start[c + 1] - s;
+    if (len > BIN_SMALL) continue;
+    int r = 0;
+    for (int t = 0; t < len; ++t) r += member[s + t] < i;
+    if (r < cap) table[(size_t)c * cap + r] = i;
+  }
+  for (int k = tid; k < ncells * cap; k += BIN_THREADS) {
+    const int c = k / cap;
+    if (k - c * cap >= start[c + 1] - start[c]) table[k] = n;
+  }
+  // a larger cell: a warp walks the atoms in index order until it has
+  // min(count, cap) of them
+  if (!s_big) return;
+  for (int c = warp; c < ncells; c += BIN_WARPS) {
+    const int len = start[c + 1] - start[c];
+    if (len <= BIN_SMALL) continue;   // warp-uniform
+    const int want = min(len, cap);
+    int* row = table + (size_t)c * cap;
+    int got = 0;
+    for (int i0 = 0; i0 < n && got < want; i0 += 32) {
+      const int i = i0 + lane;
+      const bool in = i < n && cell[i] == c;
+      const unsigned ballot = __ballot_sync(0xffffffffu, in);
+      const int k = got + __popc(ballot & ((1u << lane) - 1u));
+      if (in && k < cap) row[k] = i;
+      got += __popc(ballot);
+    }
+  }
+}
+
+// int32 words of cell_bin's arrays (kernels/neighbors.py holds the same
+// count).
+static long long cell_bin_words(int n, int ncells) {
+  return 2 * (long long)n + 2 * (long long)ncells + 1;
 }
 
 #define BUILD_WARPS 8
@@ -351,21 +478,39 @@ __global__ void __launch_bounds__(BUILD_THREADS) cell_build_kernel(
                       rb2);
 }
 
-static const int BIN_THREADS = 256;
-
 template <typename T>
 static int launch_bin(const void* pos, const void* box, const void* trigger,
-                      void* table, void* flags, int n, int nx, int ny,
-                      int nz, int cap, int device, void* stream) {
+                      void* table, void* flags, void* scratch, int n, int nx,
+                      int ny, int nz, int cap, int device, void* stream) {
   if (n < 0 || nx < 1 || ny < 1 || nz < 1 || cap < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem =
+      scratch != nullptr ? 0 : cell_bin_words(n, nx * ny * nz) * 4;
+  if (smem > BIN_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cell_bin_kernel<T><<<nx * ny * nz, BIN_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(pos), static_cast<const T*>(box),
-      static_cast<const int*>(trigger), static_cast<int*>(table),
-      static_cast<int*>(flags), n, nx, ny, nz, cap);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* p = static_cast<const T*>(pos);
+  const T* b = static_cast<const T*>(box);
+  const int* trig = static_cast<const int*>(trigger);
+  int* tab = static_cast<int*>(table);
+  int* fl = static_cast<int*>(flags);
+  if (scratch != nullptr) {
+    cell_bin_kernel<T, false><<<1, BIN_THREADS, 0, s>>>(
+        p, b, trig, tab, fl, static_cast<int*>(scratch), n, nx, ny, nz, cap);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the grant leaves room for the kernel's static shared memory
+  static bool granted[SNAP_DEVICES] = {};  // per kernel instance, device
+  if (device >= SNAP_DEVICES || !granted[device]) {
+    err = cudaFuncSetAttribute(cell_bin_kernel<T, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               BIN_SMEM_MAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device < SNAP_DEVICES) granted[device] = true;
+  }
+  cell_bin_kernel<T, true><<<1, BIN_THREADS, smem, s>>>(
+      p, b, trig, tab, fl, nullptr, n, nx, ny, nz, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -401,10 +546,11 @@ static int launch_build(const void* pos, const void* box,
 #define CELL_BIN(SFX, T)                                                     \
   extern "C" int cell_bin_##SFX(const void* pos, const void* box,            \
                                 const void* trigger, void* table,            \
-                                void* flags, int n, int nx, int ny, int nz,  \
-                                int cap, int device, void* stream) {         \
-    return launch_bin<T>(pos, box, trigger, table, flags, n, nx, ny, nz,     \
-                         cap, device, stream);                               \
+                                void* flags, void* scratch, int n, int nx,   \
+                                int ny, int nz, int cap, int device,         \
+                                void* stream) {                              \
+    return launch_bin<T>(pos, box, trigger, table, flags, scratch, n, nx,    \
+                         ny, nz, cap, device, stream);                       \
   }
 #define CELL_BUILD(SFX, T)                                                   \
   extern "C" int cell_build_##SFX(                                           \

@@ -10,7 +10,8 @@ build is two hand-written kernels:
 
 - :func:`cell_bin` — the static ``[ncells, cell_cap]`` cell table (atom
   indices, N as the empty sentinel, atoms of a cell in increasing index),
-  raising ``flags[FLAG_CELL_MAX]`` to the largest cell count;
+  raising ``flags[FLAG_CELL_MAX]`` to the largest cell count: one block
+  bins each atom once and sorts them by cell (a stable counting sort);
 - :func:`cell_build` — the padded ``[N, K]`` lists at rcut + skin
   (``nbr_idx`` int32, ``mask`` bool, ``shifts``), valid candidates packed
   to the front in stencil and slot order, raising ``flags[FLAG_NBR_MAX]``
@@ -51,7 +52,10 @@ from ..md.neighbor import dedup_stencil
 
 FLAG_NBR_MAX, FLAG_CELL_MAX = 0, 1    # md/cell_list.py's flag slots
 _P, _I, _D = _build.P, _build.I, _build.D
-_BIN_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
+_BIN_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)
+# csrc/cell_list.cu: the cell bin's dynamic shared memory (SNAP_SMEM_MAX
+# less 1 KB); past it its arrays go to scratch
+_BIN_SMEM_MAX = 232448 - 1024
 _BUILD_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                _D)
 _BRUTE_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D)
@@ -263,8 +267,13 @@ def cell_bin(pos, box, grid, trigger, flags):
     _kernel_device(pos, 'cell_bin')
     table = torch.empty((grid.ncells, grid.cell_cap), dtype=torch.int32,
                         device=pos.device)
+    # the kernel's arrays (each atom's cell, the atoms by cell, the cells'
+    # starts and cursors), in shared memory where they fit
+    words = 2 * pos.shape[0] + 2 * grid.ncells + 1
+    scratch = (None if 4 * words <= _BIN_SMEM_MAX else
+               torch.empty(words, dtype=torch.int32, device=pos.device))
     _build.launch('cell_list', f'cell_bin_{_sfx(pos.dtype)}', _BIN_ARGS,
-                  pos, box, trigger, table, flags, pos.shape[0],
+                  pos, box, trigger, table, flags, scratch, pos.shape[0],
                   *grid.nbins, grid.cell_cap)
     launches.record('cell_bin', (pos, box, trigger, flags), table, **meta)
     return table

@@ -439,8 +439,8 @@ def test_cpu_registry_is_clean_against_its_budgets():
     assert [(f.code, f.entry) for f in report.all_findings()] == [
         ('entry-not-run', 'force.torch.sharded')]
     launched = {e.entry: e.metrics['launches'] for e in report.entries}
-    assert launched['force.kernel.half'] == 4
-    assert launched['md.device_chunk'] == 9
+    assert launched['force.kernel.half'] == 5
+    assert launched['md.device_chunk'] == 12
 
 
 @pytest.mark.parametrize('seed', [0, 1])

@@ -197,7 +197,7 @@ def test_brute_build_checks_its_inputs(bad, match):
 
 def test_serve_analysis_entry_records_one_brute_build():
     """The static analysis's ``serve.bucket_step`` entry: one batched step
-    records one ``brute_build`` launch among its five, with no finding."""
+    records one ``brute_build`` launch among its six, with no finding."""
     ep, = [e for e in default_registry('cpu')
            if e.name == 'serve.bucket_step']
     assert ep.launches['brute_build'] == 1
@@ -205,6 +205,6 @@ def test_serve_analysis_entry_records_one_brute_build():
     with launches.record_launches() as rec:
         built.fn(*built.args)
     names = [r.name for r in rec.records]
-    assert names.count('brute_build') == 1 and len(names) == 5
+    assert names.count('brute_build') == 1 and len(names) == 6
     er = analyze_entry(ep)
-    assert er.findings == [] and er.metrics['launches'] == 5
+    assert er.findings == [] and er.metrics['launches'] == 6

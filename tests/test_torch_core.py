@@ -261,7 +261,7 @@ def test_assemble_forces_deterministic_by_destination(key):
     make_cluster neighbor list with masked slots and one isolated atom (no
     neighbors, named only by masked slots); two calls give equal bits, and
     the CSR order is numpy's stable sort of the flat neighbor index."""
-    from repro_torch.kernels.assemble import destination_csr
+    from repro_torch.kernels.assemble import destination_csr_plain
     jdt, tdt, _ = DTYPES[key]
     natoms, nnbor = 12, 8
     _, _, nbr_idx, mask, _ = make_cluster(natoms=natoms, nnbor=nnbor,
@@ -279,7 +279,7 @@ def test_assemble_forces_deterministic_by_destination(key):
     _close(got.numpy(), want, 1e-14 if key == 'f64' else 1e-6)
     assert not got[3].any()
     assert torch.equal(got, tsnap.assemble_forces(*args))
-    order, rowptr = destination_csr(torch.as_tensor(nbr_idx), natoms)
+    order, rowptr = destination_csr_plain(torch.as_tensor(nbr_idx), natoms)
     np.testing.assert_array_equal(
         order.numpy(), np.argsort(nbr_idx.reshape(-1), kind='stable'))
     np.testing.assert_array_equal(
@@ -297,9 +297,8 @@ def test_destination_csr_leaves_masked_pairs_out():
     rng = np.random.default_rng(8)
     mask = rng.uniform(size=(natoms, nnbor)) > 0.4
     nbr_idx = np.where(mask, rng.integers(0, natoms, (natoms, nnbor)), 0)
-    dest = torch.where(torch.as_tensor(mask), torch.as_tensor(nbr_idx),
-                       natoms)
-    order, rowptr = destination_csr(dest, natoms)
+    order, rowptr = destination_csr(torch.as_tensor(nbr_idx), natoms,
+                                    torch.as_tensor(mask))
     np.testing.assert_array_equal(
         np.diff(rowptr.numpy()), np.bincount(nbr_idx[mask], minlength=natoms))
     assert int(rowptr[-1]) == mask.sum()

@@ -260,7 +260,7 @@ def _isolated_rank(rank):
                          load_budgets(DEFAULT_PATH, 'cpu'))
     (entry,) = report.entries
     assert report.ok and entry.entry == 'force.torch.sharded' and \
-        entry.metrics['launches'] == 1, report.table()
+        entry.metrics['launches'] == 2, report.table()
     return sorted(m for m in sys.modules if _forbidden(m))
 
 

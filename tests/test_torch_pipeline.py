@@ -159,5 +159,6 @@ def test_cpu_path_launches_no_kernel():
     assert set(before) == {'snap_u_half', 'snap_y_half',
                            'snap_y_half_bf16', 'snap_fused_de_half',
                            'snap_u_full', 'snap_y_full',
-                           'snap_fused_de_full', 'assemble_forces',
-                           'cell_bin', 'cell_build', 'brute_build'}
+                           'snap_fused_de_full', 'destination_csr',
+                           'assemble_forces', 'cell_bin', 'cell_build',
+                           'brute_build'}

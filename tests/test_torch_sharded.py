@@ -266,10 +266,10 @@ def test_offset_assembly_partials_match_reference_sharded_semantics():
     for r in range(SHARDS):
         rows = slice(r * n_local, (r + 1) * n_local)
         m = torch.as_tensor(mask[rows])
-        dl = (torch.as_tensor(d[rows]) * m[..., None]).contiguous()
-        dest = torch.where(m, torch.as_tensor(nbr[rows]), NATOMS)
         parts.append(assemble_forces_csr_plain(
-            dl, *destination_csr(dest, NATOMS), r * n_local))
+            torch.as_tensor(d[rows]),
+            *destination_csr(torch.as_tensor(nbr[rows]), NATOMS, m),
+            r * n_local, m))
         assert parts[-1].shape == (NATOMS, 3)
     np.testing.assert_allclose(sum(parts).numpy(),
                                np.asarray(want).reshape(NATOMS, 3),
