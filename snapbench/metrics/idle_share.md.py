@@ -1,0 +1,7 @@
+"""The share of the MD window in which no operation ran on the device, %."""
+
+from snapbench.roofline import idle_share
+
+
+def read(rec):
+    return idle_share(rec)
