@@ -6,7 +6,8 @@ The port's kernels are launched through ``ctypes``
 wrapper reports to this module instead, at its device branch:
 
 - on a CUDA tensor, :func:`record` after the launch (it also adds one to
-  the kernel's entry of ``kernels._build.LAUNCHES``, the launch counts,
+  the kernel's entry of ``kernels._build.LAUNCHES``, the launch counts
+  of the port's counter registry :mod:`repro_torch.runtime.trace`,
   so a wrapper counts and records in one call);
 - on a CPU tensor, :func:`plain`, which runs the plain version inside the
   *plain-body* scope (its ops are the CPU stand-in for the kernel and are
@@ -31,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..kernels import _build
+from ..runtime import trace
 
 PLAIN, HOT = 'plain', 'hot'
 
@@ -121,11 +122,12 @@ def _as_tuple(x):
 
 def record(name: str, inputs, outputs, **meta) -> None:
     """Report one CUDA launch of kernel ``name`` on the tensors ``inputs``
-    and ``outputs``: one more in ``_build.LAUNCHES[name]`` and, with a
+    and ``outputs``: one more in ``_build.LAUNCHES[name]`` (the counter
+    ``name`` of :mod:`repro_torch.runtime.trace`) and, with a
     recorder active, its record.  ``meta``: ``lanes`` (the padded atom
     axis; default the first input's last extent), ``twojmax``,
     ``mxu_dtype`` and the sizes :mod:`repro_torch.analysis.cost` reads."""
-    _build.LAUNCHES[name] += 1
+    trace.count(name)
     if _ACTIVE is not None:
         _ACTIVE.add(name, inputs, _as_tuple(outputs), meta)
 

@@ -11,14 +11,15 @@ Every exported function returns the ``cudaError_t`` of its launch; the
 wrappers call :func:`launch` (or :func:`launcher`'s bound function, where
 the wrapper's host time counts), which raises when it is not 0, and then
 report it with ``analysis.launches.record``, which adds one to the kernel's
-entry of :data:`LAUNCHES`.  ``-Xptxas -v``'s report is kept
+entry of :data:`LAUNCHES`.  While a profiler records, each call of a C
+function is a host span ``repro_torch.kernel.<symbol>``
+(:mod:`repro_torch.runtime.trace`).  ``-Xptxas -v``'s report is kept
 beside each library (``.log``); :func:`ptxas_report` reads each kernel's
 registers, stack frame and spills from it.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -29,6 +30,8 @@ from functools import lru_cache
 from pathlib import Path
 
 import torch
+
+from ..runtime import trace
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / 'build'
@@ -137,8 +140,9 @@ def _function(source: str, symbol: str, argtypes: tuple):
 
 
 P, I, D, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
-# kernel launches per wrapper entry (launches.record counts; CPU runs do not)
-LAUNCHES = collections.Counter()
+# kernel launches per wrapper entry (launches.record counts; CPU runs do
+# not), in the port's counter registry
+LAUNCHES = trace.COUNTS
 
 
 def query(source: str, symbol: str, argtypes: tuple, *args) -> None:
@@ -159,12 +163,14 @@ def launcher(source: str, symbol: str, argtypes: tuple):
     on a CUDA error.  ``args`` are already plain: device pointers as ints
     (``data_ptr()``), ints and floats.  For wrappers whose host time
     counts: the function, its argument types and the stream query are
-    bound once."""
+    bound once.  The call is the span ``kernel.<symbol>``."""
     fn, err_string = _function(source, symbol, tuple(argtypes) + (I, P))
     raw_stream = torch._C._cuda_getCurrentRawStream
+    name, span = 'kernel.' + symbol, trace.span
 
     def run(device, *args):
-        code = fn(*args, device, raw_stream(device))
+        with span(name):
+            code = fn(*args, device, raw_stream(device))
         if code != 0:
             raise RuntimeError(f'{symbol}: CUDA error {code} '
                                f'({err_string(code).decode()})')

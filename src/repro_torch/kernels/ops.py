@@ -19,6 +19,11 @@ row a lane.  :func:`make_sharded_force_fn` is the atom-sharded entry (port
 of the reference's ``shard_map``): each rank of a process group runs a
 pipeline on its own rows, and only the exit force assembly and the energy
 cross ranks.
+
+While a profiler records, each step of an evaluation is a span
+(:mod:`repro_torch.runtime.trace`): ``snap.layout`` (the entry
+relayout), ``snap.u``, ``snap.y``, ``snap.de``, ``snap.assemble`` and
+``snap.energy``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..core.snap import (SnapConfig, assemble_forces, bzero_shift,
                          resolve_device)
 from ..core.tables import device_table
 from ..runtime.shard import group_of, rank_rows
+from ..runtime.trace import span
 from .common import LANES
 from .snap_fused_de import snap_fused_de_full, snap_fused_de_full_plain
 from .snap_fused_de_half import snap_fused_de_half, snap_fused_de_half_plain
@@ -170,33 +176,41 @@ def _stages(stages, layout, cfg, beta, disp, dtype, device, mxu_dtype,
     u_stage, y_stage, de_stage, coef_of = stages
     geo = dict(twojmax=cfg.twojmax, rcut=cfg.rcut, rmin0=cfg.rmin0,
                rfac0=cfg.rfac0, switch_flag=cfg.switch_flag)
-    ut_r, ut_i = u_stage(disp, **geo)
-    ut_r = ut_r + _self_planes(cfg, dtype, device, layout)
-    coef = coef_of(beta, cfg.twojmax).to(dtype)
-    y_kw = {} if mxu_dtype is None else dict(mxu_dtype=mxu_dtype)
-    if lane_atoms is not None:
-        y_kw['lane_atoms'] = lane_atoms
-    y_r, y_i = y_stage(ut_r, ut_i, coef, twojmax=cfg.twojmax, **y_kw)
-    return ut_r, ut_i, y_r, y_i, de_stage(disp, y_r, y_i, **geo)
+    with span('snap.u'):
+        ut_r, ut_i = u_stage(disp, **geo)
+        ut_r = ut_r + _self_planes(cfg, dtype, device, layout)
+    with span('snap.y'):
+        coef = coef_of(beta, cfg.twojmax).to(dtype)
+        y_kw = {} if mxu_dtype is None else dict(mxu_dtype=mxu_dtype)
+        if lane_atoms is not None:
+            y_kw['lane_atoms'] = lane_atoms
+        y_r, y_i = y_stage(ut_r, ut_i, coef, twojmax=cfg.twojmax, **y_kw)
+    with span('snap.de'):
+        dedr = de_stage(disp, y_r, y_i, **geo)
+    return ut_r, ut_i, y_r, y_i, dedr
 
 
 def _pipeline(stages, layout, cfg, beta, beta0, dx, dy, dz, nbr_idx, mask,
               dtype, device, with_energy, mxu_dtype=None, shard=None):
     group, n_shards = shard if shard is not None else (None, 1)
-    disp, ok, natoms = _to_layout(cfg, dx, dy, dz, mask, dtype, device)
-    nbr_idx = torch.as_tensor(nbr_idx, device=device, dtype=torch.long)
-    beta = torch.as_tensor(beta, device=device)
+    with span('snap.layout'):
+        disp, ok, natoms = _to_layout(cfg, dx, dy, dz, mask, dtype, device)
+        nbr_idx = torch.as_tensor(nbr_idx, device=device, dtype=torch.long)
+        beta = torch.as_tensor(beta, device=device)
     ut_r, ut_i, y_r, y_i, dedr = _stages(stages, layout, cfg, beta, disp,
                                          dtype, device, mxu_dtype)
-    # pipeline exit: per-pair dE back to [natoms, nnbor, 3] force assembly
-    dedr_pairs = dedr[:, :3, :natoms].permute(2, 0, 1)
-    forces = assemble_forces(dedr_pairs, nbr_idx, ok, natoms * n_shards,
-                             group)
+    with span('snap.assemble'):
+        # pipeline exit: per-pair dE back to [natoms, nnbor, 3] force
+        # assembly
+        dedr_pairs = dedr[:, :3, :natoms].permute(2, 0, 1)
+        forces = assemble_forces(dedr_pairs, nbr_idx, ok, natoms * n_shards,
+                                 group)
     if not with_energy:
         return None, None, forces
-    e_atom = energy_from_ylist_lanes(cfg, ut_r, ut_i, y_r, y_i, beta,
-                                     beta0)[:natoms]
-    return torch.sum(e_atom), e_atom, forces
+    with span('snap.energy'):
+        e_atom = energy_from_ylist_lanes(cfg, ut_r, ut_i, y_r, y_i, beta,
+                                         beta0)[:natoms]
+        return torch.sum(e_atom), e_atom, forces
 
 
 def snap_force_pipeline(cfg: SnapConfig, beta, beta0, dx, dy, dz, nbr_idx,
@@ -287,20 +301,24 @@ def _batched_kernel(cfg, beta, beta0, disp, nbr_idx, mask, dtype, device,
     """One launch of each stage for all B lanes: (e_atom [B, n_pad],
     forces [B, n_pad, 3]) in ``dtype``."""
     B, n_pad = mask.shape[:2]
-    # each lane's neighbor indices name atoms of its own lane; masked slots
-    # get the sentinel B * lane_atoms in assemble_forces
-    base = torch.arange(B, device=device) * lane_atoms
-    nbr = _lanes_flat(nbr_idx.long() + base[:, None, None], lane_atoms)
-    d = [_lanes_flat(disp[..., c], lane_atoms) for c in range(3)]
-    planes, ok, natoms = _to_layout(cfg, *d, _lanes_flat(mask, lane_atoms),
-                                    dtype, device)
+    with span('snap.layout'):
+        # each lane's neighbor indices name atoms of its own lane; masked
+        # slots get the sentinel B * lane_atoms in assemble_forces
+        base = torch.arange(B, device=device) * lane_atoms
+        nbr = _lanes_flat(nbr_idx.long() + base[:, None, None], lane_atoms)
+        d = [_lanes_flat(disp[..., c], lane_atoms) for c in range(3)]
+        planes, ok, natoms = _to_layout(cfg, *d,
+                                        _lanes_flat(mask, lane_atoms),
+                                        dtype, device)
     ut_r, ut_i, y_r, y_i, dedr = _stages(_STAGES[layout], layout, cfg, beta,
                                          planes, dtype, device, mxu_dtype,
                                          lane_atoms)
-    forces = assemble_forces(dedr[:, :3, :].permute(2, 0, 1), nbr, ok,
-                             natoms)
-    e_atom = energy_from_ylist_lanes(cfg, ut_r, ut_i, y_r, y_i, beta, beta0,
-                                     lanes=B)
+    with span('snap.assemble'):
+        forces = assemble_forces(dedr[:, :3, :].permute(2, 0, 1), nbr, ok,
+                                 natoms)
+    with span('snap.energy'):
+        e_atom = energy_from_ylist_lanes(cfg, ut_r, ut_i, y_r, y_i, beta,
+                                         beta0, lanes=B)
     return e_atom[:, :n_pad], forces.view(B, lane_atoms, 3)[:, :n_pad]
 
 

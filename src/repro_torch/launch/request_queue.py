@@ -202,6 +202,7 @@ class QueueEntry:
     input_clean: bool                  # finite pos/box/beta at admission
     retries: int = 0
     not_before: float = 0.0            # backoff gate for retried entries
+    queued_ns: int = 0                 # perf_counter_ns at (re)queueing
 
 
 @dataclass

@@ -64,6 +64,18 @@ Robustness contract (the reference's):
   serves the backlog until a deadline, fails the remainder with deadline
   errors, and writes a final snapshot.
 
+While a profiler records, the server's phases are spans
+(:mod:`repro_torch.runtime.trace`): ``serve.submit``; ``serve.step``
+holding ``serve.next_batch``, ``serve.pack`` (holding ``serve.upload``,
+the packed buffer's copy to the device), ``serve.call`` (the batched
+function's enqueue), ``serve.readback`` and ``serve.triage``; and
+``serve.build_fn`` (a bucket's function built).  The counters
+``serve.dispatched`` and ``serve.queue_wait_ns`` add the requests
+dispatched and their wait from entering the queue to dispatch (the
+server's own ``time.perf_counter_ns``, whatever clock the caller's
+``now`` is on); ``serve.atoms`` and ``serve.atom_slots`` the valid atoms
+packed and the lanes x padded atoms launched for them.
+
 Wire names are the reference's: bucket keys, and the impl names
 ``'kernel'`` and ``'jnp'`` in results, journal events and
 ``compile_counts`` — ``'jnp'`` names the adjoint path (``impl='adjoint'``
@@ -91,6 +103,7 @@ from ..md.fault_inject import KernelPathFault
 from ..md.neighbor import suggest_capacity
 from ..md.resilience import lane_health
 from ..runtime import checkpoint as ckpt
+from ..runtime.trace import count, span
 from .journal import (Journal, forces_digest, pack_array, read_events,
                       unpack_array)
 from .journal import _jsonable as _json_safe
@@ -232,7 +245,8 @@ def pack_batch(bucket: Bucket, reqs: List[ForceRequest], device) -> Dict:
         host['beta'][i] = r.beta
         host['beta0'][i] = r.beta0
         host['n_valid'][i] = r.natoms
-    dev = torch.as_tensor(buf).to(device)
+    with span('serve.upload'):
+        dev = torch.as_tensor(buf).to(device)
     arrays = {k: t.view(sizes[k]) for k, t in
               zip(sizes, torch.split(dev, np.diff(ends, prepend=0)
                                      .tolist()))}
@@ -315,6 +329,10 @@ class ForceServer:
         With a journal attached, the ``accepted`` event is appended before
         ``submit`` returns — the ack is durable.
         """
+        with span('serve.submit'):
+            return self._submit(req, now)
+
+    def _submit(self, req: ForceRequest, now: float) -> Bucket:
         rid = req.req_id
         if rid in self._inflight:
             raise DuplicateRequestError(
@@ -356,7 +374,8 @@ class ForceServer:
                                deadline_abs=deadline_abs,
                                input_clean=clean,
                                retries=min(int(retries), self.max_retries),
-                               not_before=now)
+                               not_before=now,
+                               queued_ns=time.perf_counter_ns())
             self.queue.submit(entry, now)
         except ServiceError as err:
             # a *replayed* request was acked in a previous life, so an
@@ -399,24 +418,27 @@ class ForceServer:
             counter = self._trace_counts.setdefault(
                 (bucket.key, impl), {})
             kw = self.force_kwargs if impl == 'kernel' else {}
-            self._fns[key] = make_batched_force_fn(
-                cfg, bucket.n_pad, bucket.max_nbors, impl=IMPLS[impl],
-                dtype=self.dtype, device=self.device, trace_counter=counter,
-                **kw)
+            with span('serve.build_fn'):
+                self._fns[key] = make_batched_force_fn(
+                    cfg, bucket.n_pad, bucket.max_nbors, impl=IMPLS[impl],
+                    dtype=self.dtype, device=self.device,
+                    trace_counter=counter, **kw)
         return self._fns[key]
 
     def _run(self, bucket: Bucket, impl: str, arrays: Dict):
         """One batched call; energies, forces and flags come back to the
         host in one copy (float64 holds each exactly)."""
-        e, f, flags = self._fn(bucket, impl)(**arrays)
-        host = torch.cat([e.double(), f.double().reshape(-1),
-                          flags.double().reshape(-1)]).cpu().numpy()
-        B = e.shape[0]
-        ends = np.cumsum([B, f.numel()])
-        f_np = torch.empty((), dtype=f.dtype).numpy().dtype
-        return (host[:ends[0]],
-                host[ends[0]:ends[1]].reshape(f.shape).astype(f_np),
-                host[ends[1]:].reshape(flags.shape).astype(np.int32))
+        with span('serve.call'):
+            e, f, flags = self._fn(bucket, impl)(**arrays)
+        with span('serve.readback'):
+            host = torch.cat([e.double(), f.double().reshape(-1),
+                              flags.double().reshape(-1)]).cpu().numpy()
+            B = e.shape[0]
+            ends = np.cumsum([B, f.numel()])
+            f_np = torch.empty((), dtype=f.dtype).numpy().dtype
+            return (host[:ends[0]],
+                    host[ends[0]:ends[1]].reshape(f.shape).astype(f_np),
+                    host[ends[1]:].reshape(flags.shape).astype(np.int32))
 
     def _strike(self, bucket: Bucket) -> None:
         n = self._kernel_faults.get(bucket.key, 0) + 1
@@ -431,8 +453,13 @@ class ForceServer:
         where ``dt`` is the measured step duration per ``timer`` (pass a
         constant timer for deterministic tests); completions are stamped
         at ``now + dt``."""
+        with span('serve.step'):
+            return self._step(now, timer)
+
+    def _step(self, now, timer):
         t0 = timer()
-        batch = self.queue.next_batch(now)
+        with span('serve.next_batch'):
+            batch = self.queue.next_batch(now)
         if batch is None:
             return [], 0.0
         self._step_idx += 1
@@ -454,7 +481,13 @@ class ForceServer:
         if not live:
             return finished, timer() - t0
 
-        arrays = pack_batch(bucket, [e.req for e in live], self.device)
+        t_ns = time.perf_counter_ns()
+        count('serve.dispatched', len(live))
+        count('serve.queue_wait_ns', sum(t_ns - e.queued_ns for e in live))
+        with span('serve.pack'):
+            arrays = pack_batch(bucket, [e.req for e in live], self.device)
+        count('serve.atoms', sum(e.req.natoms for e in live))
+        count('serve.atom_slots', bucket.batch * bucket.n_pad)
         impl = 'jnp' if bucket.key in self._quarantined else self.impl
         if self.fault_hook is not None:
             try:
@@ -471,10 +504,11 @@ class ForceServer:
 
         dt = timer() - t0
         end = now + dt
-        for lane, entry in enumerate(live):
-            finished.extend(self._triage(entry, bucket, impl,
-                                         e_b[lane], f_b[lane],
-                                         flags_b[lane], now, end))
+        with span('serve.triage'):
+            for lane, entry in enumerate(live):
+                finished.extend(self._triage(entry, bucket, impl,
+                                             e_b[lane], f_b[lane],
+                                             flags_b[lane], now, end))
         return finished, dt
 
     def _triage(self, entry: QueueEntry, bucket: Bucket, impl: str,
@@ -505,6 +539,7 @@ class ForceServer:
                 entry.retries += 1
                 entry.not_before = now + self.backoff_s \
                     * (2.0 ** (entry.retries - 1))
+                entry.queued_ns = time.perf_counter_ns()
                 self.queue.requeue(entry)
                 self._retries_scheduled += 1
                 if self._journal is not None:

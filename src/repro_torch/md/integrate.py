@@ -12,7 +12,11 @@ Port of ``repro.md.integrate`` with three step loops, fastest first:
   the stacked (PE, KE) rows, the flags and the rebuild count once per
   chunk, with one copy; nothing inside a chunk synchronizes.  A
   :class:`~repro_torch.md.resilience.RecoveryPolicy`, MD checkpoints and a
-  fault hook apply to this loop only.
+  fault hook apply to this loop only.  While a profiler records, its
+  phases are spans (:mod:`repro_torch.runtime.trace`): ``md.seed``,
+  ``md.build_chunk_fn``, ``md.chunk`` (``md.step`` a step),
+  ``md.readback``, ``md.triage`` and ``md.finish``; the counter
+  ``md.rebuilds`` adds the rebuilds of each committed chunk.
 - ``loop='scan'``: neighbor lists rebuild on the host every
   ``rebuild_every`` steps (fixed-shape padded lists); between rebuilds a
   plain Python loop runs the velocity-Verlet steps with positions,
@@ -38,6 +42,7 @@ from ..analysis.retrace import record_trace
 from ..core.snap import SnapConfig, energy_forces, resolve_device
 from ..runtime.checkpoint import host_array
 from ..runtime.shard import atom_slices, gather_atoms, group_of
+from ..runtime.trace import count, span
 from .cell_list import (FLAG_DRIFT, FLAG_ESCAPE, FLAG_NAN_FORCE,
                         FLAG_NAN_STATE, N_FLAGS, auto_cell_cap, check_flags,
                         device_neighbors, make_grid, rebuild_if)
@@ -286,7 +291,8 @@ def make_device_chunk_fn(cfg: SnapConfig, dt, mass, grid, force_fn,
         rebuilt = torch.zeros((), dtype=torch.int32, device=pos.device)
         rows = []
         for _ in range(n_sub):
-            with launches.hot():    # one step: the analysis' hot scope
+            # one step: the analysis' hot scope and the span md.step
+            with launches.hot(), span('md.step'):
                 vel = vel + (0.5 * dt * acc_scale) * f
                 pos = pos + dt * vel
                 dp = pos - pos_ref
@@ -383,85 +389,90 @@ def _run_nve_device(cfg, force_fn, state, n_steps, dt, mass, max_nbors,
     # padded width to the rcut+skin shell by the volume ratio
     k_build = int(np.ceil(max_nbors * (rb / cfg.rcut) ** 3 / 4.0)) * 4
 
-    carry = None
-    e_ref = 0.0
-    dt_cur = float(dt)
-    if restore:
-        if not checkpoint_dir:
-            raise ValueError('restore=True requires checkpoint_dir')
-        carry_np, box, grid, manifest = load_md_checkpoint(
-            checkpoint_dir,
-            rank_slice=atom_slices()[0] if shards > 1 else None)
-        box = np.asarray(box, np.float64)
-        carry = {k: _carry_tensor(v, device, dtype)
-                 for k, v in carry_np.items()}
-        if shards > 1:   # each rank read its rows; the group replicates them
-            carry.update({k: gather_atoms(carry[k]) for k in ATOM_KEYS})
-        if carry['pos'].shape[0] != n_atoms:
-            raise ValueError(
-                f"checkpoint holds {carry['pos'].shape[0]} atoms but "
-                f'state has {n_atoms}')
-        state.step = int(manifest['step'])
-        state.box = box
-        e_ref = float(manifest['extra'].get('e_ref', 0.0))
-        # dt is part of the continuation contract: a dt-halving before the
-        # snapshot must survive the restart
-        dt_cur = float(manifest['extra'].get('dt', dt))
-        cache['device_grid'] = grid
-    else:
-        box = np.asarray(state.box, np.float64)
-        nbins = tuple(int(max(1, np.floor(b / rb))) for b in box)
-        grid = cache.get('device_grid')
-        if grid is None:
-            cap = cell_cap or auto_cell_cap(state.pos, box, rb)
-            grid = cache['device_grid'] = make_grid(box, cfg.rcut, skin,
-                                                    cap, k_build)
-        elif (grid.nbins != nbins or grid.max_nbors < k_build
-              or grid.rcut != cfg.rcut or grid.skin != skin
-              or (cell_cap is not None and grid.cell_cap < cell_cap)):
-            # the grid fingerprint covers what the run_nve fingerprint
-            # cannot: box geometry and list capacities.  Capacities may
-            # legitimately *exceed* the request — a previous run under
-            # this cache may have regrown them — but never undershoot.
-            raise ValueError(
-                'fn_cache device grid was built for a different '
-                'box/max_nbors/cell_cap; pass a fresh dict')
-    box_t = torch.tensor(box, dtype=dtype, device=device)
-    max_regrows = policy.max_regrows if policy is not None else 0
-    regrows = 0
+    with span('md.seed'):
+        carry = None
+        e_ref = 0.0
+        dt_cur = float(dt)
+        if restore:
+            if not checkpoint_dir:
+                raise ValueError('restore=True requires checkpoint_dir')
+            carry_np, box, grid, manifest = load_md_checkpoint(
+                checkpoint_dir,
+                rank_slice=atom_slices()[0] if shards > 1 else None)
+            box = np.asarray(box, np.float64)
+            carry = {k: _carry_tensor(v, device, dtype)
+                     for k, v in carry_np.items()}
+            if shards > 1:   # each rank read its rows; the group
+                # replicates them
+                carry.update({k: gather_atoms(carry[k])
+                              for k in ATOM_KEYS})
+            if carry['pos'].shape[0] != n_atoms:
+                raise ValueError(
+                    f"checkpoint holds {carry['pos'].shape[0]} atoms but "
+                    f'state has {n_atoms}')
+            state.step = int(manifest['step'])
+            state.box = box
+            e_ref = float(manifest['extra'].get('e_ref', 0.0))
+            # dt is part of the continuation contract: a dt-halving before the
+            # snapshot must survive the restart
+            dt_cur = float(manifest['extra'].get('dt', dt))
+            cache['device_grid'] = grid
+        else:
+            box = np.asarray(state.box, np.float64)
+            nbins = tuple(int(max(1, np.floor(b / rb))) for b in box)
+            grid = cache.get('device_grid')
+            if grid is None:
+                cap = cell_cap or auto_cell_cap(state.pos, box, rb)
+                grid = cache['device_grid'] = make_grid(box, cfg.rcut, skin,
+                                                        cap, k_build)
+            elif (grid.nbins != nbins or grid.max_nbors < k_build
+                  or grid.rcut != cfg.rcut or grid.skin != skin
+                  or (cell_cap is not None and grid.cell_cap < cell_cap)):
+                # the grid fingerprint covers what the run_nve fingerprint
+                # cannot: box geometry and list capacities.  Capacities may
+                # legitimately *exceed* the request — a previous run under
+                # this cache may have regrown them — but never undershoot.
+                raise ValueError(
+                    'fn_cache device grid was built for a different '
+                    'box/max_nbors/cell_cap; pass a fresh dict')
+        box_t = torch.tensor(box, dtype=dtype, device=device)
+        max_regrows = policy.max_regrows if policy is not None else 0
+        regrows = 0
 
-    if carry is None:
-        pos = torch.tensor(np.asarray(state.pos), dtype=dtype, device=device)
-        vel = torch.tensor(np.asarray(state.vel), dtype=dtype, device=device)
-        while True:   # seed build, with bounded regrow under a policy
-            nbr_idx, mask, shifts, fl = device_neighbors(pos, box_t, grid)
-            report = HealthReport.from_flags(fl, grid)
-            if not report.overflow:
-                break
-            if policy is None:
-                check_flags(fl, grid)   # raises the legacy typed error
-            if regrows >= max_regrows:
-                raise RecoveryExhaustedError(
-                    'initial neighbor build still overflows after '
-                    'regrowing', dict(step=state.step,
-                                      issues=report.issues(),
-                                      regrows=regrows))
-            new_grid = regrow_grid(grid, report, policy)
-            events.append(RecoveryEvent(
-                state.step, 'regrow',
-                dict(where='seed_build', issues=report.issues(),
-                     cell_cap=(grid.cell_cap, new_grid.cell_cap),
-                     max_nbors=(grid.max_nbors, new_grid.max_nbors))))
-            grid = cache['device_grid'] = new_grid
-            regrows += 1
-        # seed the force carry once at step 0 (exact rcut cut, like every
-        # step)
-        e0, f = _seed_force(force_fn, cfg, pos, nbr_idx, shifts, mask)
-        ke0 = 0.5 * (mass / ACC_CONV) * float(torch.sum(vel * vel))
-        e_ref = float(e0) + ke0
-        carry = dict(pos=pos, vel=vel, f=f, nbr_idx=nbr_idx,
-                     shifts=shifts, mask=mask, pos_ref=pos,
-                     flags=_full_flags(fl))
+        if carry is None:
+            pos = torch.tensor(np.asarray(state.pos), dtype=dtype,
+                               device=device)
+            vel = torch.tensor(np.asarray(state.vel), dtype=dtype,
+                               device=device)
+            while True:   # seed build, with bounded regrow under a policy
+                nbr_idx, mask, shifts, fl = device_neighbors(pos, box_t, grid)
+                report = HealthReport.from_flags(fl, grid)
+                if not report.overflow:
+                    break
+                if policy is None:
+                    check_flags(fl, grid)   # raises the legacy typed error
+                if regrows >= max_regrows:
+                    raise RecoveryExhaustedError(
+                        'initial neighbor build still overflows after '
+                        'regrowing', dict(step=state.step,
+                                          issues=report.issues(),
+                                          regrows=regrows))
+                new_grid = regrow_grid(grid, report, policy)
+                events.append(RecoveryEvent(
+                    state.step, 'regrow',
+                    dict(where='seed_build', issues=report.issues(),
+                         cell_cap=(grid.cell_cap, new_grid.cell_cap),
+                         max_nbors=(grid.max_nbors, new_grid.max_nbors))))
+                grid = cache['device_grid'] = new_grid
+                regrows += 1
+            # seed the force carry once at step 0 (exact rcut cut, like every
+            # step)
+            e0, f = _seed_force(force_fn, cfg, pos, nbr_idx, shifts, mask)
+            ke0 = 0.5 * (mass / ACC_CONV) * float(torch.sum(vel * vel))
+            e_ref = float(e0) + ke0
+            carry = dict(pos=pos, vel=vel, f=f, nbr_idx=nbr_idx,
+                         shifts=shifts, mask=mask, pos_ref=pos,
+                         flags=_full_flags(fl))
 
     chunks = cache.setdefault('device_chunks', {})
     counter = cache.setdefault('device_trace_count', {})
@@ -479,89 +490,101 @@ def _run_nve_device(cfg, force_fn, state, n_steps, dt, mass, max_nbors,
         # (resilience may halve it) — one function per key
         key = (n_sub, grid.cell_cap, grid.max_nbors, dt_cur)
         if key not in chunks:
-            chunks[key] = make_device_chunk_fn(
-                cfg, dt_cur, mass, grid, force_fn, n_sub,
-                trace_counter=counter, policy=policy)
+            with span('md.build_chunk_fn'):
+                chunks[key] = make_device_chunk_fn(
+                    cfg, dt_cur, mass, grid, force_fn, n_sub,
+                    trace_counter=counter, policy=policy)
         attempt = carry
         if fault_hook is not None:
             attempt = fault_hook(abs_step, carry, grid)
-        (pos, vel, f, nbr_idx, shifts, mask, pos_ref, flags, rows,
-         nreb) = chunks[key](attempt['pos'], attempt['vel'], attempt['f'],
-                             box_t, attempt['nbr_idx'], attempt['shifts'],
-                             attempt['mask'], attempt['pos_ref'],
-                             attempt['flags'], e_ref)
-        # host boundary, one copy: the (PE, KE) rows, the flag lattice and
-        # the rebuild count (small integers, exact in float64)
-        host = torch.cat([rows.reshape(-1).double(), flags.double(),
-                          nreb.double().reshape(1)]).cpu().numpy()
-        pe, ke = host[0:2 * n_sub:2], host[1:2 * n_sub:2]
-        flags_h = host[2 * n_sub:2 * n_sub + N_FLAGS].astype(np.int64)
-        if policy is None:
-            check_flags(flags_h, grid)
-        else:
-            report = HealthReport.from_flags(flags_h, grid)
-            if report.overflow:
-                if regrows >= max_regrows:
-                    raise RecoveryExhaustedError(
-                        'capacity overflows persisted past the regrow '
-                        'budget', dict(step=abs_step,
-                                       issues=report.issues(),
-                                       regrows=regrows))
-                new_grid = regrow_grid(grid, report, policy)
-                events.append(RecoveryEvent(
-                    abs_step, 'regrow',
-                    dict(issues=report.issues(),
-                         cell_cap=(grid.cell_cap, new_grid.cell_cap),
-                         max_nbors=(grid.max_nbors, new_grid.max_nbors))))
-                grid = cache['device_grid'] = new_grid
-                regrows += 1
-                # roll back to the last good chunk: rebuild the topology
-                # at the regrown capacities from the committed positions
-                # (the force carry is still valid — same positions)
-                ni, ms, sh, fl = device_neighbors(carry['pos'], box_t, grid)
-                carry = dict(carry, nbr_idx=ni, mask=ms, shifts=sh,
-                             pos_ref=carry['pos'], flags=_full_flags(fl))
-                continue
-            if report.numeric:
-                if numeric_retries >= policy.max_numeric_retries:
-                    raise report.numeric_error(
-                        dict(step=abs_step, issues=report.issues(),
-                             retries=numeric_retries, dt=dt_cur))
-                events.append(RecoveryEvent(
-                    abs_step, 'rollback',
-                    dict(issues=report.issues(),
-                         retries=numeric_retries)))
-                if numeric_retries >= policy.retries_before_dt_halve:
-                    dt_cur *= 0.5
-                    events.append(RecoveryEvent(abs_step, 'dt_halve',
-                                                dict(dt=dt_cur)))
-                numeric_retries += 1
-                continue   # carry is still the last good chunk
-        # clean chunk: commit to the carry and the thermo log
-        carry = dict(pos=pos, vel=vel, f=f, nbr_idx=nbr_idx,
-                     shifts=shifts, mask=mask, pos_ref=pos_ref,
-                     flags=flags)
-        numeric_retries = 0
-        rebuilds += int(host[-1])
-        _log_rows(thermo, pe, ke, it, state.step, n_atoms, n_steps,
-                  log_every)
-        it += n_sub
-        steps_since_ckpt += n_sub
-        if (checkpoint_dir and checkpoint_every
-                and steps_since_ckpt >= checkpoint_every):
-            # the carry is replicated: rank 0 writes it for the group
-            if writer:
-                path = save_md_checkpoint(
-                    checkpoint_dir, state.step + it, carry, box, grid,
-                    extra=dict(dt=dt_cur, e_ref=e_ref, n_atoms=n_atoms))
-                events.append(RecoveryEvent(state.step + it, 'checkpoint',
-                                            dict(path=str(path))))
-            if shards > 1:
-                dist.barrier()
-            steps_since_ckpt = 0
+        with span('md.chunk'):
+            (pos, vel, f, nbr_idx, shifts, mask, pos_ref, flags, rows,
+             nreb) = chunks[key](attempt['pos'], attempt['vel'],
+                                 attempt['f'], box_t, attempt['nbr_idx'],
+                                 attempt['shifts'], attempt['mask'],
+                                 attempt['pos_ref'], attempt['flags'], e_ref)
+        with span('md.readback'):
+            # host boundary, one copy: the (PE, KE) rows, the flag lattice
+            # and the rebuild count (small integers, exact in float64)
+            host = torch.cat([rows.reshape(-1).double(), flags.double(),
+                              nreb.double().reshape(1)]).cpu().numpy()
+        with span('md.triage'):
+            pe, ke = host[0:2 * n_sub:2], host[1:2 * n_sub:2]
+            flags_h = host[2 * n_sub:2 * n_sub + N_FLAGS].astype(np.int64)
+            if policy is None:
+                check_flags(flags_h, grid)
+            else:
+                report = HealthReport.from_flags(flags_h, grid)
+                if report.overflow:
+                    if regrows >= max_regrows:
+                        raise RecoveryExhaustedError(
+                            'capacity overflows persisted past the regrow '
+                            'budget', dict(step=abs_step,
+                                           issues=report.issues(),
+                                           regrows=regrows))
+                    new_grid = regrow_grid(grid, report, policy)
+                    events.append(RecoveryEvent(
+                        abs_step, 'regrow',
+                        dict(issues=report.issues(),
+                             cell_cap=(grid.cell_cap, new_grid.cell_cap),
+                             max_nbors=(grid.max_nbors,
+                                        new_grid.max_nbors))))
+                    grid = cache['device_grid'] = new_grid
+                    regrows += 1
+                    # roll back to the last good chunk: rebuild the
+                    # topology at the regrown capacities from the committed
+                    # positions (the force carry is still valid — same
+                    # positions)
+                    ni, ms, sh, fl = device_neighbors(carry['pos'], box_t,
+                                                      grid)
+                    carry = dict(carry, nbr_idx=ni, mask=ms, shifts=sh,
+                                 pos_ref=carry['pos'],
+                                 flags=_full_flags(fl))
+                    continue
+                if report.numeric:
+                    if numeric_retries >= policy.max_numeric_retries:
+                        raise report.numeric_error(
+                            dict(step=abs_step, issues=report.issues(),
+                                 retries=numeric_retries, dt=dt_cur))
+                    events.append(RecoveryEvent(
+                        abs_step, 'rollback',
+                        dict(issues=report.issues(),
+                             retries=numeric_retries)))
+                    if numeric_retries >= policy.retries_before_dt_halve:
+                        dt_cur *= 0.5
+                        events.append(RecoveryEvent(abs_step, 'dt_halve',
+                                                    dict(dt=dt_cur)))
+                    numeric_retries += 1
+                    continue   # carry is still the last good chunk
+            # clean chunk: commit to the carry and the thermo log
+            carry = dict(pos=pos, vel=vel, f=f, nbr_idx=nbr_idx,
+                         shifts=shifts, mask=mask, pos_ref=pos_ref,
+                         flags=flags)
+            numeric_retries = 0
+            rebuilds += int(host[-1])
+            count('md.rebuilds', int(host[-1]))
+            _log_rows(thermo, pe, ke, it, state.step, n_atoms, n_steps,
+                      log_every)
+            it += n_sub
+            steps_since_ckpt += n_sub
+            if (checkpoint_dir and checkpoint_every
+                    and steps_since_ckpt >= checkpoint_every):
+                # the carry is replicated: rank 0 writes it for the group
+                if writer:
+                    path = save_md_checkpoint(
+                        checkpoint_dir, state.step + it, carry, box, grid,
+                        extra=dict(dt=dt_cur, e_ref=e_ref,
+                                   n_atoms=n_atoms))
+                    events.append(RecoveryEvent(state.step + it,
+                                                'checkpoint',
+                                                dict(path=str(path))))
+                if shards > 1:
+                    dist.barrier()
+                steps_since_ckpt = 0
     cache['device_rebuilds'] = rebuilds
-    state.pos = carry['pos'].cpu().numpy()
-    state.vel = carry['vel'].cpu().numpy()
+    with span('md.finish'):
+        state.pos = carry['pos'].cpu().numpy()
+        state.vel = carry['vel'].cpu().numpy()
     state.step += n_steps
     return state, thermo
 
